@@ -10,8 +10,8 @@ printing one JSON line; any failure raises and the exit code is not 0:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of the main path, one ``nvcc`` per source;
 3. kernel: ``ring_all_to_all`` against its plain PyTorch version, bit
-   for bit, at the main path's shape and at an odd shape whose blocks are
-   not 16-byte aligned; CUDA-event medians of the kernel, the plain
+   for bit, at the TeraSort path's shape and at an odd shape whose blocks
+   are not 16-byte aligned; CUDA-event medians of the kernel, the plain
    version and one library call computing the same function;
 4. main path: TeraSort of 1 GiB of 100-byte rows over an 8-shard virtual
    mesh with the ring transport (BASELINE.md config #1), counting kernel
@@ -19,7 +19,17 @@ printing one JSON line; any failure raises and the exit code is not 0:
    host clock and one traced step (device time per layer span, top
    kernels, idle share); a small run held bit for bit to
    ``numpy_terasort``; a streamed run of 3 rounds with a partial tail;
-5. the kernel table line, then the device line last.
+5. kernel_chunked: the kernel against its plain version at the ALS
+   path's block shape, timed like phase 3;
+6. the workloads of BASELINE.md configs #3-#5, each through its entry
+   point with ``impl="auto"`` (the ring kernel on the card), its kernel
+   launches counted per block shape, the kernel held to its plain
+   version at every block shape the path gave it, its result held to its
+   numpy oracle, then warm steps timed and one traced: ALS half-step over
+   100M ratings, PageRank over 2**27 edges, the shuffle join, the TPC-DS
+   star;
+7. small runs of every workload against their numpy oracles;
+8. the kernel table line, then the device line last.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.models import als, join, pagerank, tpcds
 from sparkrdma_tpu_torch.models.terasort import (
     TeraSortConfig,
     generate_rows,
@@ -42,14 +53,45 @@ from sparkrdma_tpu_torch.models.terasort import (
     verify_terasort,
 )
 from sparkrdma_tpu_torch.ops import _build, ring_exchange
+from sparkrdma_tpu_torch.parallel.exchange import (
+    bucket_quota,
+    chunked_exchange,
+)
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
-from sparkrdma_tpu_torch.utils.u32 import rows_from_numpy
+from sparkrdma_tpu_torch.utils.u32 import (
+    rows_from_numpy,
+    shards_from_numpy,
+)
 
 SHARDS = 8
 DATA_BYTES = 1024 << 20      # BASELINE.md config #1, bench.py's default
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 KERNELS = ("ring_exchange",)
 STEP_SAMPLES = 20             # untraced steps timed before the traced one
+WORKLOAD_SAMPLES = 5          # warm steps timed per workload phase
+
+# BASELINE.md config #5: 100M ratings, the Netflix Prize's user and item
+# counts, the repo's default rank; quota = per_device // 8 as in bench.py
+ALS_CFG = als.ALSConfig(num_users=480_189, num_items=17_770, rank=8,
+                        zipf_a=1.3)
+ALS_PER_DEVICE = 100_000_000 // SHARDS
+ALS_QUOTA = ALS_PER_DEVICE // SHARDS
+ALS_SAMPLED_ITEMS = 32
+# BASELINE.md config #3, cut from 19 GB to 2**27 edges (1 GiB of edges)
+PAGERANK_CFG = pagerank.PageRankConfig(num_vertices=1 << 24,
+                                       edges_per_device=1 << 24,
+                                       out_factor=2)
+PAGERANK_ITERATIONS = 5
+# BASELINE.md config #4: bench.py's row count per device; key space = the
+# global row count, so a left key matches about one right row and each
+# shard's int32 pair_sum stays near 2**30
+JOIN_CFG = join.JoinConfig(rows_per_device_left=1 << 20,
+                           rows_per_device_right=1 << 20, key_space=1 << 23,
+                           out_factor=2)
+# bench.py's TPC-DS proportions at SF10 scale (33.5M fact rows)
+TPCDS_CFG = tpcds.TpcdsConfig(fact_rows_per_device=1 << 22,
+                              dim1_size=1 << 20, dim2_size=1 << 20,
+                              num_groups=1024, zipf_a=1.2, out_factor=4)
 
 
 def emit(obj) -> None:
@@ -112,6 +154,33 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+def _check_kernel(blocks: torch.Tensor) -> int:
+    """The kernel against its plain version on ``blocks``: raises unless
+    bit-equal; returns the max abs error (0)."""
+    got = ring_exchange.ring_all_to_all(blocks)
+    plain = ring_exchange.ring_all_to_all_plain(blocks)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, plain)
+    if not torch.equal(got, plain):
+        raise AssertionError(
+            f"ring_all_to_all != plain at {tuple(blocks.shape)}")
+    return err
+
+
+def _kernel_times(blocks: torch.Tensor) -> dict:
+    """CUDA-event times of the kernel, its plain version and the library
+    transpose on ``blocks``, and the byte bound (each word read once and
+    written once at the card's memory rate)."""
+    ms = cuda_ms(lambda: ring_exchange.ring_all_to_all(blocks))
+    plain_ms = cuda_ms(lambda: ring_exchange.ring_all_to_all_plain(blocks))
+    library_ms = cuda_ms(lambda: blocks.transpose(0, 1).contiguous())
+    moved = 2 * blocks.numel() * blocks.element_size()  # read + write
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    return {"shape": list(blocks.shape), "bytes_moved": moved, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "roofline_share": bound_ms / ms}
+
+
 def phase_kernel(cfg: TeraSortConfig) -> dict:
     """The ring kernel against its plain version at the main path's
     block shape (q = out_cap // D rows of 1+P words) and an odd one."""
@@ -120,46 +189,97 @@ def phase_kernel(cfg: TeraSortConfig) -> dict:
     errs = {}
     for shape, seed in ((main_shape, 0), ((SHARDS, SHARDS, 3, 3), 1),
                         ((3, 3, 5, 7), 2)):
-        blocks = _random_blocks(shape, seed)
-        got = ring_exchange.ring_all_to_all(blocks)
-        plain = ring_exchange.ring_all_to_all_plain(blocks)
-        torch.cuda.synchronize()
-        errs[str(shape)] = _max_abs_err(got, plain)
-        if not torch.equal(got, plain):
-            raise AssertionError(f"ring_all_to_all != plain at {shape}")
-        del got, plain
+        errs[str(shape)] = _check_kernel(_random_blocks(shape, seed))
     blocks = _random_blocks(main_shape, 0)
-    ms = cuda_ms(lambda: ring_exchange.ring_all_to_all(blocks))
-    plain_ms = cuda_ms(lambda: ring_exchange.ring_all_to_all_plain(blocks))
-    library_ms = cuda_ms(lambda: blocks.transpose(0, 1).contiguous())
-    moved = 2 * blocks.numel() * blocks.element_size()  # read + write
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    times = _kernel_times(blocks)
     # one row fewer per slot: C*W is odd, no block is 16-byte aligned and
     # the kernel takes its scalar path at full size
     odd = blocks[:, :, 1:].contiguous()
     del blocks
-    got = ring_exchange.ring_all_to_all(odd)
-    plain = ring_exchange.ring_all_to_all_plain(odd)
-    errs[str(tuple(odd.shape))] = _max_abs_err(got, plain)
-    if not torch.equal(got, plain):
-        raise AssertionError(f"ring_all_to_all != plain at {odd.shape}")
-    del got, plain
+    errs[str(tuple(odd.shape))] = _check_kernel(odd)
     unaligned_ms = cuda_ms(lambda: ring_exchange.ring_all_to_all(odd))
     del odd
     torch.cuda.empty_cache()
+    times["max_abs_err"] = errs[str(main_shape)]
     row = {"name": "ring_all_to_all", "route": "cuda",
            "source": "sparkrdma_tpu_torch/csrc/ring_exchange.cu",
            "replaces": "sparkrdma_tpu/ops/ring_exchange.py:49",
-           "launches": 0, "max_abs_err": max(errs.values()), "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-           "library_ms": library_ms}
-    emit({"phase": "kernel", "shape": list(main_shape), "bytes_moved": moved,
-          "max_abs_err_by_shape": errs, "ms": ms, "plain_ms": plain_ms,
-          "library_ms": library_ms, "bound_ms": bound_ms,
-          "roofline_share": bound_ms / ms,
+           "launches": 0, "max_abs_err": max(errs.values()),
+           "ms": times["ms"], "plain_ms": times["plain_ms"],
+           "bound_ms": times["bound_ms"], "bound_by": "bytes",
+           "library_ms": times["library_ms"], "by_shape": [times]}
+    emit({"phase": "kernel", **times, "max_abs_err_by_shape": errs,
           "unaligned_shape": [SHARDS, SHARDS, q - 1, 1 + cfg.payload_words],
           "unaligned_ms": unaligned_ms})
     return row
+
+
+def phase_kernel_chunked(row: dict) -> None:
+    """The kernel against its plain version at the ALS path's block shape
+    ``[D, D, bucket_quota(quota), 3]``, timed like ``phase_kernel``; the
+    numbers join the kernel row's ``by_shape``."""
+    shape = (SHARDS, SHARDS, bucket_quota(ALS_QUOTA), 3)
+    blocks = _random_blocks(shape, 3)
+    err = _check_kernel(blocks)
+    times = _kernel_times(blocks)
+    del blocks
+    torch.cuda.empty_cache()
+    times["max_abs_err"] = err
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["by_shape"].append(times)
+    emit({"phase": "kernel_chunked", **times})
+
+
+def _trace(fn, span_prefixes) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: device time per
+    ``record_function`` span whose name starts with one of
+    ``span_prefixes``, the top kernels, and the card's idle share of the
+    call's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, kernels = {}, []
+    for evt in prof.key_averages():
+        if evt.key.startswith(span_prefixes):
+            spans[evt.key] = {"device_ms": evt.device_time_total / 1e3,
+                              "host_ms": evt.cpu_time_total / 1e3,
+                              "count": evt.count}
+        elif evt.device_type == DeviceType.CUDA:
+            kernels.append((evt.self_device_time_total / 1e3, evt.count,
+                            evt.key[:120]))
+    kernels.sort(reverse=True)
+    busy_ms = sum(k[0] for k in kernels)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
+            "spans": spans,
+            "top_kernels": [{"ms": ms, "count": c, "name": name}
+                            for ms, c, name in kernels[:12]]}
+
+
+def _host_times_ms(fn, samples: int) -> list:
+    """Sorted host-clock times of ``samples`` calls of ``fn``, each ended
+    by a device synchronisation, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)
+
+
+def _timing(times_ms: list) -> dict:
+    return {"samples": len(times_ms),
+            "median_ms": statistics.median(times_ms),
+            "min_ms": times_ms[0], "max_ms": times_ms[-1]}
 
 
 def phase_profile(mesh: VirtualMesh, cfg: TeraSortConfig,
@@ -168,64 +288,30 @@ def phase_profile(mesh: VirtualMesh, cfg: TeraSortConfig,
     clock, then one step under ``torch.profiler``: device time per layer
     span (``fused.*``, ``exchange.*``), the top kernels, and the device's
     idle share of the step's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     step = make_terasort_step(mesh, cfg, impl="ring")
     rows_d = rows_from_numpy(rows, mesh)
-    step(rows_d)
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(STEP_SAMPLES):
-        t0 = time.perf_counter()
-        step(rows_d)
-        torch.cuda.synchronize()
-        samples.append((time.perf_counter() - t0) * 1e3)
-    samples.sort()
-    emit({"phase": "step_times", "samples": len(samples),
-          "median_ms": statistics.median(samples), "min_ms": samples[0],
-          "max_ms": samples[-1],
+    samples = _host_times_ms(lambda: step(rows_d), STEP_SAMPLES)
+    emit({"phase": "step_times", **_timing(samples),
           "median_gb_per_s": rows.nbytes / statistics.median(samples) / 1e6})
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(rows_d)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, kernels = {}, []
-    for evt in prof.key_averages():
-        if evt.key.startswith(("fused.", "exchange.")):
-            spans[evt.key] = {"device_ms": evt.device_time_total / 1e3,
-                              "host_ms": evt.cpu_time_total / 1e3}
-        elif evt.device_type == DeviceType.CUDA:
-            kernels.append((evt.self_device_time_total / 1e3, evt.count,
-                            evt.key[:120]))
-    kernels.sort(reverse=True)
-    busy_ms = sum(k[0] for k in kernels)
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-          "spans": spans,
-          "top_kernels": [{"ms": ms, "count": c, "name": name}
-                          for ms, c, name in kernels[:12]]})
+    emit({"phase": "profile",
+          **_trace(lambda: step(rows_d), ("fused.", "exchange."))})
 
 
-def phase_main_path(cfg: TeraSortConfig) -> int:
+def phase_main_path(cfg: TeraSortConfig, row: dict) -> int:
     mesh = VirtualMesh(SHARDS)
     rows = generate_rows(cfg, SHARDS, seed=0)
     torch.cuda.reset_peak_memory_stats()
-    ring_exchange.LAUNCHES = 0
-    out, counts, dt = run_terasort(mesh, cfg, impl="ring", rows=rows)
-    launches = ring_exchange.LAUNCHES
-    if launches == 0:
-        raise AssertionError("the main path never launched ring_all_to_all")
+    (out, counts, dt), launches, shapes = _launches(
+        "terasort", lambda: run_terasort(mesh, cfg, impl="ring", rows=rows))
     peak = torch.cuda.max_memory_allocated()
     verify_terasort(out, counts, rows, SHARDS)
     emit({"phase": "main_path", "shards": SHARDS,
           "rows_per_device": cfg.rows_per_device,
           "row_bytes": cfg.row_bytes, "data_bytes": int(rows.nbytes),
           "step_s": dt, "gb_per_s": rows.nbytes / dt / 1e9,
-          "ring_launches": launches, "peak_device_bytes": peak,
-          "verified": True})
+          "ring_launches": launches,
+          "ring_shapes": _check_path_shapes(row, "terasort", shapes),
+          "peak_device_bytes": peak, "verified": True})
     del out
     phase_profile(mesh, cfg, rows)
     del rows
@@ -252,12 +338,315 @@ def phase_main_path(cfg: TeraSortConfig) -> int:
     return launches
 
 
+def _launches(path: str, fn):
+    """``fn()`` with the kernel's launch counts set to 0 just before it
+    and read just after; raises if the path never launched the kernel.
+    Returns ``(fn(), launches, launches per block shape)``."""
+    ring_exchange.LAUNCHES = 0
+    ring_exchange.SHAPES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = ring_exchange.LAUNCHES
+    if launches == 0:
+        raise AssertionError(f"the {path} path never launched "
+                             "ring_all_to_all")
+    return out, launches, dict(ring_exchange.SHAPES)
+
+
+def _check_path_shapes(row: dict, path: str, shapes: dict) -> list:
+    """The kernel against its plain version, bit for bit on random blocks,
+    at every block shape the ``path`` run gave it; a shape not met before
+    is timed like ``phase_kernel`` and joins the kernel row's
+    ``by_shape``, and each shape's entry records the path's launches at
+    it. Returns ``[[shape, launches], ...]``."""
+    by_shape = {tuple(e["shape"]): e for e in row["by_shape"]}
+    for shape, count in sorted(shapes.items()):
+        entry = by_shape.get(shape)
+        if entry is None:
+            blocks = _random_blocks(shape, 10 + len(by_shape))
+            err = _check_kernel(blocks)
+            entry = _kernel_times(blocks)
+            del blocks
+            torch.cuda.empty_cache()
+            entry["max_abs_err"] = err
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["by_shape"].append(entry)
+            by_shape[shape] = entry
+        entry.setdefault("launches_by_path", {})[path] = count
+    return [[list(shape), count] for shape, count in sorted(shapes.items())]
+
+
+def _stable_grouping(rows: np.ndarray, dest: np.ndarray, n: int) -> list:
+    """What each shard must receive: per receiving shard, every source
+    shard's rows with that destination, source-major, each source's rows
+    in their original order."""
+    per = len(rows) // n
+    return [np.concatenate([rows[s * per:(s + 1) * per][
+        dest[s * per:(s + 1) * per] == d] for s in range(n)])
+        for d in range(n)]
+
+
+def phase_als(mesh: VirtualMesh, row: dict) -> int:
+    """ALS half-step (items from users) over 100M zipf-skewed ratings
+    through the chunked exchange; the received rows held exactly to a
+    numpy grouping, 32 sampled items' factors (the hottest included) to
+    float64 normal equations; warm calls timed, one traced."""
+    t0 = time.perf_counter()
+    ratings = als.generate_ratings(ALS_CFG, SHARDS, ALS_PER_DEVICE, seed=0)
+    rng = np.random.default_rng(1)
+    fixed = (rng.standard_normal((ALS_CFG.num_users, ALS_CFG.rank))
+             .astype(np.float32) / np.sqrt(ALS_CFG.rank))
+    generate_s = time.perf_counter() - t0
+
+    def half_step(rows):
+        return als.als_half_step(mesh, ALS_CFG, rows, fixed, ALS_QUOTA)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (factors, rounds), launches, shapes = _launches(
+        "chunked/als", lambda: half_step(ratings))
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ring_shapes = _check_path_shapes(row, "chunked/als", shapes)
+    warm_ms = _host_times_ms(lambda: half_step(ratings), 2)
+
+    # the exchange, held to a stable numpy grouping by item owner
+    received, _ = als.exchange_ratings(mesh, ratings, ALS_QUOTA)
+    recv_totals = [int(r.shape[0]) for r in received]
+    want = _stable_grouping(ratings, ratings[:, 0] % SHARDS, SHARDS)
+    for d in range(SHARDS):
+        np.testing.assert_array_equal(
+            received[d].cpu().numpy().view(np.uint32), want[d],
+            err_msg=f"ALS exchange, shard {d}")
+    del received, want
+
+    per_item = np.bincount(ratings[:, 0], minlength=ALS_CFG.num_items)
+    rated = np.flatnonzero(per_item)
+    sample = np.concatenate([[0], rng.choice(
+        rated[rated != 0], ALS_SAMPLED_ITEMS - 1, replace=False)])
+    oracle = als.numpy_als_half_step(ratings, fixed, ALS_CFG,
+                                     items=sample)[sample].astype(np.float64)
+    got = factors[sample].astype(np.float64)
+    np.testing.assert_allclose(got, oracle, rtol=2e-2, atol=1e-3)
+
+    ratings_d = rows_from_numpy(ratings, mesh)
+    resident_ms = _host_times_ms(lambda: half_step(ratings_d), 2)
+    trace = _trace(lambda: half_step(ratings_d),
+                   ("als.", "chunked.", "exchange."))
+    emit({"phase": "als", "ratings": int(len(ratings)),
+          "per_device": ALS_PER_DEVICE, "num_users": ALS_CFG.num_users,
+          "num_items": ALS_CFG.num_items, "rank": ALS_CFG.rank,
+          "quota": ALS_QUOTA, "bucketed_quota": bucket_quota(ALS_QUOTA),
+          "rounds": rounds, "ring_launches": launches,
+          "ring_shapes": ring_shapes, "recv_totals": recv_totals,
+          "hot_item_ratings": int(per_item[0]),
+          "first_call_s": first_s, "warm_ms": warm_ms,
+          "als_ratings_per_s": len(ratings) / statistics.median(warm_ms)
+          * 1e3,
+          "resident_warm_ms": resident_ms,
+          "als_ratings_per_s_resident": len(ratings)
+          / statistics.median(resident_ms) * 1e3,
+          "peak_device_bytes": peak, "generate_s": generate_s,
+          "exchange_exact": True, "sampled_items": len(sample),
+          "factor_max_abs_err": float(np.abs(got - oracle).max()),
+          # per item, the error against the size of its factor vector
+          "factor_max_rel_err": float(
+              (np.abs(got - oracle).max(axis=1)
+               / np.abs(oracle).max(axis=1)).max())})
+    emit({"phase": "als_profile", **trace})
+    return launches
+
+
+def phase_pagerank(mesh: VirtualMesh, row: dict) -> int:
+    """``run_pagerank`` for 5 iterations over 2**27 edges, held to the
+    float64 oracle; warm iterations timed, one traced."""
+    cfg = PAGERANK_CFG
+    t0 = time.perf_counter()
+    graph = pagerank.random_graph(cfg, SHARDS, seed=0)
+    generate_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ranks, launches, shapes = _launches(
+        "pagerank", lambda: pagerank.run_pagerank(
+            mesh, cfg, PAGERANK_ITERATIONS, graph=graph))
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ring_shapes = _check_path_shapes(row, "pagerank", shapes)
+    edges, ranks0, out_deg = graph
+    t0 = time.perf_counter()
+    want = pagerank.numpy_pagerank(edges, cfg.num_vertices, cfg.damping,
+                                   PAGERANK_ITERATIONS)
+    oracle_s = time.perf_counter() - t0
+    np.testing.assert_allclose(ranks, want, rtol=1e-4)
+
+    step = pagerank.make_pagerank_step(mesh, cfg)
+    args = (rows_from_numpy(edges, mesh), shards_from_numpy(ranks0, mesh),
+            shards_from_numpy(out_deg, mesh))
+    times = _host_times_ms(lambda: step(*args), WORKLOAD_SAMPLES)
+    overflowed = step(*args)[1].cpu().tolist()
+    trace = _trace(lambda: step(*args), ("pagerank.", "exchange."))
+    n_edges = len(edges)
+    emit({"phase": "pagerank", "num_vertices": cfg.num_vertices,
+          "edges": n_edges, "iterations": PAGERANK_ITERATIONS,
+          "ring_launches": launches, "ring_shapes": ring_shapes,
+          "run_s": run_s,
+          "step_times": _timing(times),
+          "s_per_iteration": statistics.median(times) / 1e3,
+          "pagerank_edges_per_s": n_edges / statistics.median(times) * 1e3,
+          "max_rel_err": float((np.abs(ranks - want) / want).max()),
+          "overflowed": overflowed, "peak_device_bytes": peak,
+          "generate_s": generate_s, "oracle_s": oracle_s})
+    emit({"phase": "pagerank_profile", **trace})
+    return launches
+
+
+def phase_join(mesh: VirtualMesh, row: dict) -> int:
+    """``run_join`` at bench.py's row count, held exactly to the oracle;
+    warm steps timed, one traced."""
+    cfg = JOIN_CFG
+    tables = join.generate_tables(cfg, SHARDS, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    (matches, pair_sum), launches, shapes = _launches(
+        "join", lambda: join.run_join(mesh, cfg, tables=tables))
+    peak = torch.cuda.max_memory_allocated()
+    ring_shapes = _check_path_shapes(row, "join", shapes)
+    want = join.numpy_join(*tables)
+    if (matches, pair_sum) != want:
+        raise AssertionError(f"join {(matches, pair_sum)} != oracle {want}")
+    step = join.make_join_step(mesh, cfg)
+    args = tuple(rows_from_numpy(t, mesh) for t in tables)
+    times = _host_times_ms(lambda: step(*args), WORKLOAD_SAMPLES)
+    _, shard_sums, overflowed = step(*args)
+    trace = _trace(lambda: step(*args), ("join.", "exchange."))
+    rows = sum(len(t) for t in tables)
+    emit({"phase": "join", "rows": rows, "key_space": cfg.key_space,
+          "matches": matches, "pair_sum": pair_sum, "exact": True,
+          "max_shard_pair_sum": int(shard_sums.max().item()),
+          "ring_launches": launches, "ring_shapes": ring_shapes,
+          "step_times": _timing(times),
+          "join_rows_per_s": rows / statistics.median(times) * 1e3,
+          "overflowed": overflowed.cpu().tolist(),
+          "peak_device_bytes": peak})
+    emit({"phase": "join_profile", **trace})
+    return launches
+
+
+def phase_tpcds(mesh: VirtualMesh, row: dict) -> int:
+    """``run_tpcds`` at SF10 scale, held exactly to the oracle; warm
+    steps timed, one traced."""
+    cfg = TPCDS_CFG
+    t0 = time.perf_counter()
+    star = tpcds.generate_star(cfg, SHARDS, seed=0)
+    generate_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    (counts, sums), launches, shapes = _launches(
+        "tpcds", lambda: tpcds.run_tpcds(mesh, cfg, star=star))
+    peak = torch.cuda.max_memory_allocated()
+    ring_shapes = _check_path_shapes(row, "tpcds", shapes)
+    want_c, want_s = tpcds.numpy_tpcds(*star, cfg.num_groups)
+    np.testing.assert_array_equal(counts, want_c)
+    np.testing.assert_array_equal(sums, want_s)
+    fact, dim1, dim2 = star
+    step = tpcds.make_tpcds_step(mesh, cfg)
+    args = (rows_from_numpy(fact, mesh),
+            rows_from_numpy(tpcds.pad_to_devices(dim1, SHARDS), mesh),
+            rows_from_numpy(tpcds.pad_to_devices(dim2, SHARDS), mesh))
+    times = _host_times_ms(lambda: step(*args), WORKLOAD_SAMPLES)
+    overflowed = step(*args)[2].cpu().tolist()
+    trace = _trace(lambda: step(*args), ("tpcds.", "exchange."))
+    hot = np.bincount(fact[:, 0]).max()
+    emit({"phase": "tpcds", "fact_rows": len(fact),
+          "dim_rows": [len(dim1), len(dim2)], "groups": cfg.num_groups,
+          "joined_rows": int(counts.sum()), "exact": True,
+          "hot_key_share": float(hot / len(fact)),
+          "ring_launches": launches, "ring_shapes": ring_shapes,
+          "step_times": _timing(times),
+          "tpcds_fact_rows_per_s": len(fact) / statistics.median(times)
+          * 1e3,
+          "overflowed": overflowed, "peak_device_bytes": peak,
+          "generate_s": generate_s})
+    emit({"phase": "tpcds_profile", **trace})
+    return launches
+
+
+def phase_small_runs(mesh: VirtualMesh) -> None:
+    """Small runs of every workload on the card against the numpy
+    oracles: integers exact, floats at the tests' tolerances."""
+    rng = np.random.default_rng(7)
+    per = 50
+    dest = rng.integers(0, SHARDS, SHARDS * per).astype(np.uint32)
+    rows = np.stack([dest, rng.integers(0, 2**32, SHARDS * per,
+                                        dtype=np.uint32)], axis=1)
+    for s in range(SHARDS):   # destination-grouped per source
+        seg = slice(s * per, (s + 1) * per)
+        rows[seg] = rows[seg][np.argsort(rows[seg, 0], kind="stable")]
+    counts = np.stack([np.bincount(rows[s * per:(s + 1) * per, 0],
+                                   minlength=SHARDS) for s in range(SHARDS)])
+    received, rounds = chunked_exchange(mesh, rows, counts, quota=7)
+    for got, want in zip(received,
+                         _stable_grouping(rows, rows[:, 0], SHARDS)):
+        np.testing.assert_array_equal(got, want)
+
+    cfg = als.ALSConfig(num_users=64, num_items=16, rank=4, zipf_a=1.3)
+    ratings = als.generate_ratings(cfg, SHARDS, 80, seed=5)
+    fixed = rng.normal(size=(cfg.num_users, cfg.rank)).astype(np.float32)
+    factors, als_rounds = als.als_half_step(mesh, cfg, ratings, fixed, 16)
+    np.testing.assert_allclose(
+        factors, als.numpy_als_half_step(ratings, fixed, cfg), rtol=2e-2,
+        atol=1e-3)
+    cfg = als.ALSConfig(num_users=96, num_items=24, rank=6, zipf_a=1.3)
+    _, _, history, _ = als.run_als(
+        mesh, cfg, als.generate_ratings(cfg, SHARDS, 160, seed=8), quota=32,
+        iterations=3, seed=8)
+    if not (history[1] < 0.5 * history[0]
+            and history[3] <= history[2] <= history[1]):
+        raise AssertionError(f"ALS RMSE did not fall: {history}")
+
+    cfg = pagerank.PageRankConfig(num_vertices=64, edges_per_device=96,
+                                  out_factor=SHARDS)
+    edges, _, _ = pagerank.random_graph(cfg, SHARDS, seed=3)
+    np.testing.assert_allclose(
+        pagerank.run_pagerank(mesh, cfg, 5, seed=3),
+        pagerank.numpy_pagerank(edges, cfg.num_vertices, cfg.damping, 5),
+        rtol=1e-4)
+
+    cfg = join.JoinConfig(rows_per_device_left=128, rows_per_device_right=96,
+                          key_space=256, out_factor=4)
+    tables = join.generate_tables(cfg, SHARDS, seed=7)
+    if join.run_join(mesh, cfg, tables=tables) != join.numpy_join(*tables):
+        raise AssertionError("small join disagrees with its oracle")
+
+    for cfg, seed in ((tpcds.TpcdsConfig(fact_rows_per_device=512,
+                                         dim1_size=200, dim2_size=300,
+                                         num_groups=64, out_factor=4), 3),
+                      (tpcds.TpcdsConfig(fact_rows_per_device=256,
+                                         dim1_size=50, dim2_size=80,
+                                         num_groups=32, zipf_a=1.05,
+                                         out_factor=8), 11)):
+        star = tpcds.generate_star(cfg, SHARDS, seed)
+        for got, want in zip(tpcds.run_tpcds(mesh, cfg, star=star),
+                             tpcds.numpy_tpcds(*star, cfg.num_groups)):
+            np.testing.assert_array_equal(got, want)
+    emit({"phase": "small_runs", "chunked_rounds": rounds,
+          "als_rounds": als_rounds, "als_rmse": history,
+          "all_match_oracles": True})
+
+
 def main() -> None:
     phase_device()
     phase_build()
     cfg = TeraSortConfig(rows_per_device=DATA_BYTES // 100 // SHARDS)
     row = phase_kernel(cfg)
-    row["launches"] = phase_main_path(cfg)
+    launches = {"terasort": phase_main_path(cfg, row)}
+    phase_kernel_chunked(row)
+    mesh = VirtualMesh(SHARDS)
+    launches["chunked/als"] = phase_als(mesh, row)
+    launches["pagerank"] = phase_pagerank(mesh, row)
+    launches["join"] = phase_join(mesh, row)
+    launches["tpcds"] = phase_tpcds(mesh, row)
+    phase_small_runs(mesh)
+    row["launches"] = sum(launches.values())
+    row["launches_by_path"] = launches
     emit({"kernels": [row]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,16 +10,19 @@ block transpose, done by the CUDA kernel in ``csrc/ring_exchange.cu``
 ``ring_all_to_all`` is the wrapper: a CUDA tensor always reaches the
 kernel (or an exception); a CPU tensor takes ``ring_all_to_all_plain``,
 the plain PyTorch version that the CPU tests and the on-card comparison
-use. ``LAUNCHES`` counts kernel launches.
+use. ``LAUNCHES`` counts kernel launches and ``SHAPES`` counts them per
+block shape ``(D, D, C, W)``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 LAUNCHES = 0
+SHAPES: Dict[Tuple[int, ...], int] = {}
 _KERNEL = "ring_exchange"
 
 
@@ -95,4 +98,6 @@ def ring_all_to_all(blocks: torch.Tensor) -> torch.Tensor:
         return out
     _launch(_library(), blocks, out)
     LAUNCHES += 1
+    shape = tuple(blocks.shape)
+    SHAPES[shape] = SHAPES.get(shape, 0) + 1
     return out

@@ -24,18 +24,26 @@ Transports (``impl``):
 * ``"native"`` — ``lax.ragged_all_to_all`` in the JAX package. It has no
   single-card meaning and waits for the multi-process port; asking for it
   raises ``NotImplementedError``.
+
+The chunked exchange (``chunked_exchange`` and its builders, at the end)
+moves arbitrarily skewed traffic in bounded rounds of at most ``quota``
+rows per (source, destination) pair; its ring rounds are the kernel's
+second call site.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from sparkrdma_tpu_torch.ops.ring_exchange import ring_all_to_all
 from sparkrdma_tpu_torch.parallel.mesh import take_rows
+from sparkrdma_tpu_torch.utils.u32 import rows_from_numpy
 
 # Host-side dispatch tally for the data plane: callers that launch an
 # exchange record here so tests can assert that a job's rows crossed the
@@ -60,6 +68,20 @@ def _exclusive_cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 def _trail(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """``mask [D, N]`` reshaped to broadcast over ``like``'s row axes."""
     return mask.reshape(mask.shape + (1,) * (like.dim() - 2))
+
+
+def spread_index(valid: torch.Tensor, index: torch.Tensor,
+                 width: int) -> torch.Tensor:
+    """Flat index into a ``[D * width]`` buffer of ``width`` places per
+    shard, for a scatter-add of ``[D, N]`` values: a valid entry goes to
+    its shard's place ``index``, an invalid one (whose value the caller
+    makes zero) to place ``position % width``. Spreading the no-op adds
+    keeps them from queueing as atomics on one address."""
+    d, n = valid.shape
+    dev = valid.device
+    spread = torch.arange(n, device=dev) % width
+    return (torch.where(valid, index.to(torch.int64), spread)
+            + torch.arange(d, device=dev)[:, None] * width)
 
 
 def _slot_fill(data: torch.Tensor, starts: torch.Tensor,
@@ -267,16 +289,20 @@ def group_by_destination(data: torch.Tensor, dest: torch.Tensor,
     ``data [D, cap, ...]``, ``dest [D, cap]``; rows with ``dest < 0`` or
     ``dest >= num_partitions`` are padding: they sort to the end and
     don't count. Returns ``(grouped_rows, counts int32[D,
-    num_partitions])``."""
+    num_partitions])``.
+
+    The counts come from the sorted destinations (one binary search per
+    partition boundary), not from atomic adds: a scatter-add of every
+    row into D+1 counters serialises on those few addresses."""
     dest = dest.to(torch.int64)
     dest = torch.where((dest < 0) | (dest >= num_partitions),
                        num_partitions, dest)
-    _, order = torch.sort(dest, dim=1, stable=True)
+    sorted_dest, order = torch.sort(dest, dim=1, stable=True)
     grouped = take_rows(data, order)
-    counts = torch.zeros((dest.shape[0], num_partitions + 1),
-                         dtype=torch.int64, device=dest.device)
-    counts.scatter_add_(1, dest, torch.ones_like(dest))
-    return grouped, counts[:, :num_partitions].to(torch.int32)
+    bounds = torch.arange(num_partitions + 1, device=dest.device)
+    edges = torch.searchsorted(
+        sorted_dest, bounds.expand(dest.shape[0], -1).contiguous())
+    return grouped, torch.diff(edges, dim=1).to(torch.int32)
 
 
 def shuffle_shard(data: torch.Tensor, dest: torch.Tensor,
@@ -287,3 +313,177 @@ def shuffle_shard(data: torch.Tensor, dest: torch.Tensor,
     recv_offsets, overflowed)`` — see ``ragged_exchange_shard``."""
     grouped, counts = group_by_destination(data, dest, data.shape[0])
     return ragged_exchange_shard(grouped, counts, output, impl)
+
+
+# -- the chunked exchange: bounded rounds at any skew -----------------------
+
+def bucket_quota(quota: int) -> int:
+    """Round ``quota`` up to the next power of two. In the JAX package this
+    is the memoization bucket of the compiled round builders; the port
+    compiles nothing, but the bucketed quota is each round's per-pair
+    block length and so sets the round count ``chunked_exchange``
+    returns."""
+    return 1 << max(0, int(quota) - 1).bit_length()
+
+
+def _chunked_round(grouped: torch.Tensor, counts: torch.Tensor,
+                   round_idx: int, quota: int, impl: str,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunked round of every shard: round r moves the slice
+    ``[start + r*quota, start + min((r+1)*quota, count))`` of each
+    destination segment. ``grouped [D, cap, ...]`` is destination-grouped
+    with ``counts[s, d]`` rows from shard s to shard d. Returns this
+    round's ``received [D, D*quota, ...]`` packed grouped by source and
+    ``recv_counts int32[D, D]`` (``[receiver, source]``)."""
+    n = counts.shape[0]
+    counts = counts.to(torch.int64)
+    lo = torch.clamp(counts, max=round_idx * quota)
+    send_counts = torch.minimum(lo + quota, counts) - lo
+    with record_function("chunked.slot_fill"):
+        filled, _, _, _ = _slot_fill(
+            grouped, _exclusive_cumsum(counts, dim=1) + lo, send_counts, n,
+            quota)
+    blocks = filled.reshape((n, n, quota) + grouped.shape[2:])
+    recv_counts = send_counts.t().to(torch.int32).contiguous()
+    if impl == "ring":
+        # the send rows already sit in [D, quota] blocks: the ring's fixed
+        # block shape IS the quota, so no send-side compaction
+        with record_function("chunked.transport"):
+            got = _ring_move_blocks(blocks)
+        with record_function("chunked.pack"):
+            received = _pack_by_source(got, recv_counts,
+                                       torch.zeros_like(filled))
+        return received, recv_counts
+    # collective transports take a compact destination-grouped send
+    # buffer: the slot blocks packed by destination (rows past the total
+    # stay zero, as the JAX scatter leaves them)
+    with record_function("chunked.pack"):
+        send_buf = _pack_by_source(blocks, send_counts,
+                                   torch.zeros_like(filled))
+    with record_function("chunked.transport"):
+        # per-pair counts <= quota and the receive capacity is D*quota,
+        # so the overflow flag cannot trip and is dropped, as in JAX
+        received, recv_counts, _, _ = ragged_exchange_shard(
+            send_buf, send_counts, impl=impl)
+    return received, recv_counts
+
+
+def make_chunked_exchange(mesh, quota: int, impl: str = "auto"):
+    """Bounded-round ragged exchange for arbitrary skew over ``mesh`` (a
+    ``VirtualMesh``). One round moves at most ``bucket_quota(quota)`` rows
+    per (source, destination) pair, so a receiver never nets more than
+    ``D * quota`` rows per round however skewed the traffic is.
+
+    Returns ``round_fn(grouped, counts, round_idx) -> (received [D,
+    D*quota, ...], recv_counts int32[D, D])`` for destination-grouped
+    ``grouped [D, cap, ...]`` with ``counts[s, d]`` rows from s to d (as
+    ``group_by_destination`` produces), to be driven over
+    ``ceil(max(counts) / bucket_quota(quota))`` rounds. The JAX builder is
+    memoized to share compiles; this one has nothing to compile."""
+    quota = bucket_quota(quota)
+    impl = resolve_transport(mesh, impl)
+
+    def round_fn(grouped: torch.Tensor, counts: torch.Tensor,
+                 round_idx: int):
+        return _chunked_round(grouped, counts, round_idx, quota, impl)
+
+    return round_fn
+
+
+def _land(acc: torch.Tensor, received: torch.Tensor, counts: torch.Tensor,
+          round_idx: int, quota: int) -> None:
+    """Land one round's received rows in ``acc [D, cap_out, ...]`` at their
+    final source-major place ``base[src] + lo[src] + w``. Each place is
+    landed once in the whole exchange and ``acc`` starts zeroed, so adding
+    a row into it is the JAX ``set``; a slot past its source's count adds
+    a zero row at a spread place (``spread_index``). That drops it without
+    the host sync a filter would need, and never writes past the end.
+    Integer adds, so exact."""
+    n, cap = acc.shape[0], acc.shape[1]
+    dev = acc.device
+    to_me = counts.t().to(torch.int64)            # [receiver, source]
+    base = _exclusive_cumsum(to_me, dim=1)        # source-major layout
+    lo = torch.clamp(to_me, max=round_idx * quota)
+    rcnt = torch.minimum(lo + quota, to_me) - lo  # received per source now
+    off = _exclusive_cumsum(rcnt, dim=1)          # packed positions
+    src = torch.arange(n, device=dev).repeat_interleave(quota)
+    w = torch.arange(quota, device=dev).repeat(n)
+    valid = w < rcnt[:, src]
+    rows = take_rows(received, torch.where(valid, off[:, src] + w, 0))
+    rows.masked_fill_(~_trail(valid, rows), 0)
+    flat = spread_index(valid, base[:, src] + lo[:, src] + w, cap)
+    acc.view((n * cap,) + acc.shape[2:]).index_add_(
+        0, flat.reshape(-1), rows.reshape((-1,) + rows.shape[2:]))
+
+
+def _round_acc(grouped: torch.Tensor, counts: torch.Tensor, round_idx: int,
+               acc: torch.Tensor, quota: int, impl: str) -> torch.Tensor:
+    """One round of the chunked exchange, landed in ``acc``; ``quota`` is
+    bucketed and ``impl`` resolved."""
+    received, _ = _chunked_round(grouped, counts, round_idx, quota, impl)
+    with record_function("chunked.land"):
+        _land(acc, received, counts, round_idx, quota)
+    return acc
+
+
+def make_chunked_exchange_acc(mesh, quota: int, impl: str = "auto"):
+    """``make_chunked_exchange`` with a device-resident accumulator: each
+    round lands its received rows straight at their final source-major
+    place, so the host loop touches no data.
+
+    Returns ``round_acc(grouped, counts, round_idx, acc) -> acc``, which
+    updates ``acc [D, cap_out, ...]`` in place (the JAX version donates
+    it). ``acc`` must come zeroed and ``cap_out`` must be ``max_d sum_s
+    counts[s, d]``, which the caller knows: it has the count matrix."""
+    return functools.partial(_round_acc, quota=bucket_quota(quota),
+                             impl=resolve_transport(mesh, impl))
+
+
+def chunked_exchange_resident(mesh, grouped: torch.Tensor,
+                              counts: np.ndarray, quota: int,
+                              impl: str = "auto",
+                              ) -> Tuple[torch.Tensor, np.ndarray, int]:
+    """The chunked exchange with its result left on the device.
+
+    ``grouped [D, cap, ...]`` destination-grouped rows on the mesh's
+    device, ``counts [D, D]`` host counts (``counts[s, d]`` rows from s
+    to d). Returns ``(acc [D, cap_out, ...], recv_totals [D], rounds)``:
+    shard d's received rows are ``acc[d, :recv_totals[d]]``, grouped by
+    source in each source's original order.
+
+    The rounds run back to back with no host synchronisation. (The JAX
+    driver synchronises every round on XLA:CPU, where a collective parks
+    its host thread in a rendezvous; on one card there is no rendezvous.)
+    """
+    n = mesh.num_shards
+    quota = bucket_quota(quota)
+    counts_host = np.asarray(counts, dtype=np.int64).reshape(n, n)
+    num_rounds = max(1, -(-int(counts_host.max()) // quota))
+    recv_totals = counts_host.sum(axis=0)
+    cap_out = max(1, int(recv_totals.max()))
+    impl = resolve_transport(mesh, impl)
+    counts_d = torch.from_numpy(counts_host).to(mesh.device)
+    acc = torch.zeros((n, cap_out) + tuple(grouped.shape[2:]),
+                      dtype=grouped.dtype, device=mesh.device)
+    for r in range(num_rounds):
+        _round_acc(grouped, counts_d, r, acc, quota, impl)
+    record_exchange(int(counts_host.sum()))
+    return acc, recv_totals, num_rounds
+
+
+def chunked_exchange(mesh, grouped: np.ndarray, counts: np.ndarray,
+                     quota: int, impl: str = "auto",
+                     ) -> Tuple[List[np.ndarray], int]:
+    """Host driver of the chunked exchange: ``grouped`` is the JAX
+    package's global ``[D*cap, ...]`` array of 4-byte words, sharded on
+    axis 0 and destination-grouped per shard, ``counts [D, D]``. Returns
+    ``(received_rows_per_shard, rounds)``: each shard's rows grouped by
+    source, in the source's original within-destination order (the
+    ``ragged_exchange_shard`` contract). ``quota`` is bucketed up to the
+    next power of two (``bucket_quota``). The rows cross to the device
+    once and back once, one copy per shard at the end."""
+    acc, recv_totals, rounds = chunked_exchange_resident(
+        mesh, rows_from_numpy(grouped, mesh), counts, quota, impl)
+    results = [acc[d, :int(recv_totals[d])].cpu().numpy().view(
+        grouped.dtype) for d in range(mesh.num_shards)]
+    return results, rounds

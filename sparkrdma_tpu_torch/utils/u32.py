@@ -14,7 +14,12 @@ A shuffle system has no weights: its carried state is the row data
 (and the splitters, which are a pure function of D). ``rows_from_numpy``
 and ``rows_to_numpy`` move rows between the JAX package's global layout
 ``u32[D*cap, W]`` and the port's mesh layout ``int32[D, cap, W]``, so
-both packages compute on identical input.
+both packages compute on identical input. ``shards_from_numpy`` and
+``shards_to_numpy`` do the same for state of any dtype, such as
+PageRank's float32 ranks and out-degrees (``f32[V]`` sharded on its
+leading axis in the JAX package, ``[D, V/D]`` here). Float payloads
+inside rows ride as their bits: ``.view(torch.int32)`` on the way in and
+``.view(torch.float32)`` on the way out, never a value cast.
 """
 
 from __future__ import annotations
@@ -38,22 +43,35 @@ def to_bits(values: torch.Tensor) -> torch.Tensor:
     return (((values & MASK) ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
+def shards_from_numpy(values: np.ndarray, mesh) -> torch.Tensor:
+    """``[D*n, ...]`` host array -> ``[D, n, ...]`` on the mesh's device,
+    dtype kept (shard d holds entries ``[d*n, (d+1)*n)``, the JAX
+    package's leading-axis sharding)."""
+    values = np.ascontiguousarray(values)
+    d = mesh.num_shards
+    if values.shape[0] % d:
+        raise ValueError(f"{values.shape[0]} rows do not split over {d} "
+                         "shards")
+    host = torch.from_numpy(values)
+    return host.reshape((d, values.shape[0] // d) + values.shape[1:]).to(
+        mesh.device)
+
+
+def shards_to_numpy(shards: torch.Tensor) -> np.ndarray:
+    """``[D, n, ...]`` mesh state -> the JAX layout ``[D*n, ...]``."""
+    host = shards.detach().to("cpu").contiguous().numpy()
+    return host.reshape((-1,) + host.shape[2:])
+
+
 def rows_from_numpy(rows: np.ndarray, mesh) -> torch.Tensor:
     """``u32[D*cap, W]`` host rows -> ``int32[D, cap, W]`` on the mesh's
-    device (shard d holds rows ``[d*cap, (d+1)*cap)``, the JAX package's
-    leading-axis sharding)."""
+    device (shard d holds rows ``[d*cap, (d+1)*cap)``)."""
     rows = np.ascontiguousarray(rows)
     if rows.dtype.itemsize != 4:
         raise TypeError(f"rows must be 4-byte words, got {rows.dtype}")
-    d = mesh.num_shards
-    if rows.shape[0] % d:
-        raise ValueError(f"{rows.shape[0]} rows do not split over {d} shards")
-    host = torch.from_numpy(rows.view(np.int32))
-    return host.reshape((d, rows.shape[0] // d) + rows.shape[1:]).to(
-        mesh.device)
+    return shards_from_numpy(rows.view(np.int32), mesh)
 
 
 def rows_to_numpy(rows: torch.Tensor) -> np.ndarray:
     """``int32[D, cap, W]`` mesh rows -> the JAX layout ``u32[D*cap, W]``."""
-    host = rows.detach().to("cpu").contiguous().numpy().view(np.uint32)
-    return host.reshape((-1,) + host.shape[2:])
+    return shards_to_numpy(rows).view(np.uint32)

@@ -34,7 +34,9 @@ def _imported_roots(path: Path):
 def test_port_has_sources():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES[:-1]}
     for must in ("ops/ring_exchange.py", "parallel/exchange.py",
-                 "parallel/device_plane.py", "models/terasort.py"):
+                 "parallel/device_plane.py", "models/terasort.py",
+                 "models/als.py", "models/pagerank.py", "models/join.py",
+                 "models/tpcds.py"):
         assert must in names
     assert (PORT / "csrc" / "ring_exchange.cu").exists()
 
