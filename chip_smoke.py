@@ -10,9 +10,13 @@ printing one JSON line; any failure raises and the exit code is not 0:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of the main path, one ``nvcc`` per source;
 3. kernel: ``ring_all_to_all`` against its plain PyTorch version, bit
-   for bit, at the TeraSort path's shape and at an odd shape whose blocks
-   are not 16-byte aligned; CUDA-event medians of the kernel, the plain
-   version and one library call computing the same function;
+   for bit, at the TeraSort path's shape, at the TMA body's tile edges
+   (a block smaller than a tile, one tile, one tile + 16 bytes; D = 1,
+   2, 3, 8) and at an odd shape whose blocks are not 16-byte aligned
+   (the load/store body); CUDA-event medians of the kernel, the plain
+   version and one library call computing the same function, cold (a
+   shape whose blocks fit in the L2 is also timed warm, and cold by
+   rotating through copies), and the host's time per launch;
 4. main path: TeraSort of 1 GiB of 100-byte rows over an 8-shard virtual
    mesh with the ring transport (BASELINE.md config #1), counting kernel
    launches, then ``verify_terasort``; repeated warm steps timed on the
@@ -34,6 +38,7 @@ printing one JSON line; any failure raises and the exit code is not 0:
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -66,6 +71,15 @@ from sparkrdma_tpu_torch.utils.u32 import (
 SHARDS = 8
 DATA_BYTES = 1024 << 20      # BASELINE.md config #1, bench.py's default
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
+L2_BYTES = 50 << 20          # H100 L2: blocks this small are timed warm too
+COLD_BYTES = 100 << 20       # bytes one rotation touches to evict the L2
+HOST_LAUNCHES = 100          # launches timed on the host clock, no sync
+TILE_WORDS = ring_exchange.TMA_TILE_BYTES // 4
+# the TMA body's edges: a block smaller than one tile, one tile, one
+# tile + 16 bytes, at D = 1, 2, 3, 8
+EDGE_SHAPES = tuple((d, d, c, w) for d in (1, 2, 3, 8)
+                    for c, w in ((100, 4), (TILE_WORDS // 2, 2),
+                                 (TILE_WORDS // 4 + 1, 4)))
 KERNELS = ("ring_exchange",)
 STEP_SAMPLES = 20             # untraced steps timed before the traced one
 WORKLOAD_SAMPLES = 5          # warm steps timed per workload phase
@@ -99,17 +113,19 @@ def emit(obj) -> None:
 
 
 def cuda_ms(fn, repeats: int = 7, per_repeat: int = 10,
-            warmup: int = 3) -> float:
+            warmup: int = 2) -> float:
     """Median over ``repeats`` of the CUDA-event time of ``per_repeat``
-    back-to-back calls of ``fn``, per call, in milliseconds. Queuing the
-    calls back to back keeps the host's launch work off the clock."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+    back-to-back calls of ``fn``, per call, in milliseconds: device time.
+    Each reading starts behind a device-side sleep twice as long as the
+    host took to queue ``per_repeat`` calls in the warm-up, so the host's
+    launch work is off the clock even where a call is shorter on the card
+    than on the host."""
+    queue_s = _warm_queue_s(fn, warmup, per_repeat)
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        _device_sleep(2 * queue_s)
         start.record()
         for _ in range(per_repeat):
             fn()
@@ -117,6 +133,27 @@ def cuda_ms(fn, repeats: int = 7, per_repeat: int = 10,
         end.synchronize()
         times.append(start.elapsed_time(end) / per_repeat)
     return statistics.median(times)
+
+
+def _warm_queue_s(fn, rounds: int, calls: int) -> float:
+    """Warm-up: ``rounds`` rounds of ``calls`` calls of ``fn``; returns
+    the longest host time one round took to queue them."""
+    queue_s = 0.0
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        queue_s = max(queue_s, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return queue_s
+
+
+def _device_sleep(seconds: float) -> None:
+    """Hold the current stream for at least ``seconds`` (at least 1 ms),
+    counted in cycles of a 2 GHz clock: the H100's SM clock is slower,
+    so the sleep lasts at least as long."""
+    torch.cuda._sleep(int(max(seconds, 1e-3) * 2e9))
 
 
 def phase_device() -> str:
@@ -154,9 +191,10 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def _check_kernel(blocks: torch.Tensor) -> int:
+def _check_kernel(blocks: torch.Tensor):
     """The kernel against its plain version on ``blocks``: raises unless
-    bit-equal; returns the max abs error (0)."""
+    bit-equal; returns the max abs error (0) and the body it took."""
+    before = dict(ring_exchange.BODIES)
     got = ring_exchange.ring_all_to_all(blocks)
     plain = ring_exchange.ring_all_to_all_plain(blocks)
     torch.cuda.synchronize()
@@ -164,21 +202,70 @@ def _check_kernel(blocks: torch.Tensor) -> int:
     if not torch.equal(got, plain):
         raise AssertionError(
             f"ring_all_to_all != plain at {tuple(blocks.shape)}")
-    return err
+    body, = [k for k, v in ring_exchange.BODIES.items()
+             if v != before.get(k, 0)]
+    return err, body
 
 
-def _kernel_times(blocks: torch.Tensor) -> dict:
+def _rotating(fn, blocks: torch.Tensor):
+    """A call of ``fn`` on the next of enough copies of ``blocks`` that one
+    round of calls touches more than ``COLD_BYTES`` (the copies and the
+    outputs, each kept until its copy's next turn), so no call finds its
+    bytes in the L2."""
+    copies = -(-COLD_BYTES // (2 * blocks.nbytes)) + 1
+    inputs = [blocks.clone() for _ in range(copies)]
+    outs = [None] * copies
+    turn = itertools.count()
+
+    def call():
+        i = next(turn) % copies
+        outs[i] = fn(inputs[i])
+    return call
+
+
+def _host_us_per_launch(blocks: torch.Tensor, rounds: int = 5) -> float:
+    """Host-clock time of ``HOST_LAUNCHES`` back-to-back wrapper calls with
+    no synchronisation, per call, in microseconds: what one launch costs
+    the host. Median of ``rounds`` such rounds."""
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_LAUNCHES):
+            ring_exchange.ring_all_to_all(blocks)
+        per_call.append((time.perf_counter() - t0) / HOST_LAUNCHES * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def _kernel_times(blocks: torch.Tensor, body: str) -> dict:
     """CUDA-event times of the kernel, its plain version and the library
-    transpose on ``blocks``, and the byte bound (each word read once and
-    written once at the card's memory rate)."""
-    ms = cuda_ms(lambda: ring_exchange.ring_all_to_all(blocks))
-    plain_ms = cuda_ms(lambda: ring_exchange.ring_all_to_all_plain(blocks))
-    library_ms = cuda_ms(lambda: blocks.transpose(0, 1).contiguous())
+    transpose on ``blocks``, the host's time per launch, and the byte
+    bound (each word read once and written once at the card's memory
+    rate). Times are cold: blocks that fit in the L2 are timed by
+    rotating through copies (``ms``, share) and also warm (``warm_ms``)."""
+    kernel = ring_exchange.ring_all_to_all
+    plain = ring_exchange.ring_all_to_all_plain
+
+    def library(b):
+        return b.transpose(0, 1).contiguous()
+
+    times = {"shape": list(blocks.shape), "body": body}
+    if blocks.nbytes <= L2_BYTES:
+        times["warm_ms"] = cuda_ms(lambda: kernel(blocks))
+        times["library_warm_ms"] = cuda_ms(lambda: library(blocks))
+        calls = [_rotating(fn, blocks) for fn in (kernel, plain, library)]
+    else:
+        calls = [lambda fn=fn: fn(blocks) for fn in (kernel, plain, library)]
+    ms, plain_ms, library_ms = (cuda_ms(call) for call in calls)
+    del calls
     moved = 2 * blocks.numel() * blocks.element_size()  # read + write
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    return {"shape": list(blocks.shape), "bytes_moved": moved, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "roofline_share": bound_ms / ms}
+    times.update({"bytes_moved": moved, "ms": ms, "plain_ms": plain_ms,
+                  "library_ms": library_ms, "bound_ms": bound_ms,
+                  "roofline_share": bound_ms / ms,
+                  "host_us_per_launch": _host_us_per_launch(blocks)})
+    return times
 
 
 def phase_kernel(cfg: TeraSortConfig) -> dict:
@@ -186,17 +273,19 @@ def phase_kernel(cfg: TeraSortConfig) -> dict:
     block shape (q = out_cap // D rows of 1+P words) and an odd one."""
     q = cfg.rows_per_device * cfg.out_factor // SHARDS
     main_shape = (SHARDS, SHARDS, q, 1 + cfg.payload_words)
-    errs = {}
-    for shape, seed in ((main_shape, 0), ((SHARDS, SHARDS, 3, 3), 1),
-                        ((3, 3, 5, 7), 2)):
-        errs[str(shape)] = _check_kernel(_random_blocks(shape, seed))
+    errs, bodies = {}, {}
+    for i, shape in enumerate((main_shape, (SHARDS, SHARDS, 3, 3),
+                               (3, 3, 5, 7)) + EDGE_SHAPES):
+        errs[str(shape)], bodies[str(shape)] = _check_kernel(
+            _random_blocks(shape, i))
     blocks = _random_blocks(main_shape, 0)
-    times = _kernel_times(blocks)
+    times = _kernel_times(blocks, bodies[str(main_shape)])
     # one row fewer per slot: C*W is odd, no block is 16-byte aligned and
-    # the kernel takes its scalar path at full size
+    # the kernel takes its load/store body, scalar words, at full size
     odd = blocks[:, :, 1:].contiguous()
     del blocks
-    errs[str(tuple(odd.shape))] = _check_kernel(odd)
+    odd_shape = str(tuple(odd.shape))
+    errs[odd_shape], bodies[odd_shape] = _check_kernel(odd)
     unaligned_ms = cuda_ms(lambda: ring_exchange.ring_all_to_all(odd))
     del odd
     torch.cuda.empty_cache()
@@ -207,9 +296,14 @@ def phase_kernel(cfg: TeraSortConfig) -> dict:
            "launches": 0, "max_abs_err": max(errs.values()),
            "ms": times["ms"], "plain_ms": times["plain_ms"],
            "bound_ms": times["bound_ms"], "bound_by": "bytes",
-           "library_ms": times["library_ms"], "by_shape": [times]}
+           "library_ms": times["library_ms"],
+           "tma_tile_bytes": ring_exchange.TMA_TILE_BYTES,
+           "tma_stages": ring_exchange.TMA_STAGES,
+           "tma_ctas_per_sm": ring_exchange.TMA_CTAS_PER_SM,
+           "by_shape": [times]}
     emit({"phase": "kernel", **times, "max_abs_err_by_shape": errs,
-          "unaligned_shape": [SHARDS, SHARDS, q - 1, 1 + cfg.payload_words],
+          "body_by_shape": bodies, "unaligned_shape": [
+              SHARDS, SHARDS, q - 1, 1 + cfg.payload_words],
           "unaligned_ms": unaligned_ms})
     return row
 
@@ -220,8 +314,8 @@ def phase_kernel_chunked(row: dict) -> None:
     numbers join the kernel row's ``by_shape``."""
     shape = (SHARDS, SHARDS, bucket_quota(ALS_QUOTA), 3)
     blocks = _random_blocks(shape, 3)
-    err = _check_kernel(blocks)
-    times = _kernel_times(blocks)
+    err, body = _check_kernel(blocks)
+    times = _kernel_times(blocks, body)
     del blocks
     torch.cuda.empty_cache()
     times["max_abs_err"] = err
@@ -338,18 +432,24 @@ def phase_main_path(cfg: TeraSortConfig, row: dict) -> int:
     return launches
 
 
+PATH_BODIES = {}   # path -> the kernel's launches on it per body
+
+
 def _launches(path: str, fn):
     """``fn()`` with the kernel's launch counts set to 0 just before it
     and read just after; raises if the path never launched the kernel.
-    Returns ``(fn(), launches, launches per block shape)``."""
+    Records the launches per body in ``PATH_BODIES``. Returns ``(fn(),
+    launches, launches per block shape)``."""
     ring_exchange.LAUNCHES = 0
     ring_exchange.SHAPES.clear()
+    ring_exchange.BODIES.clear()
     out = fn()
     torch.cuda.synchronize()
     launches = ring_exchange.LAUNCHES
     if launches == 0:
         raise AssertionError(f"the {path} path never launched "
                              "ring_all_to_all")
+    PATH_BODIES[path] = dict(ring_exchange.BODIES)
     return out, launches, dict(ring_exchange.SHAPES)
 
 
@@ -364,8 +464,8 @@ def _check_path_shapes(row: dict, path: str, shapes: dict) -> list:
         entry = by_shape.get(shape)
         if entry is None:
             blocks = _random_blocks(shape, 10 + len(by_shape))
-            err = _check_kernel(blocks)
-            entry = _kernel_times(blocks)
+            err, body = _check_kernel(blocks)
+            entry = _kernel_times(blocks, body)
             del blocks
             torch.cuda.empty_cache()
             entry["max_abs_err"] = err
@@ -647,6 +747,7 @@ def main() -> None:
     phase_small_runs(mesh)
     row["launches"] = sum(launches.values())
     row["launches_by_path"] = launches
+    row["bodies_by_path"] = PATH_BODIES
     emit({"kernels": [row]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """Card-only tests of the port: the CUDA ring all-to-all kernel against its
-plain version (at the TeraSort, chunked and workload block widths), its
-argument checks, and the TeraSort step and the chunked exchange on the
-card against the same calls on the CPU. Marked ``cuda``; each skips with a
+plain version (at the TeraSort, chunked and workload block widths; both
+bodies, at the TMA body's tile edges and pipeline depths, at the shard
+limit, on a side stream and replayed in a CUDA graph), its argument
+checks, and the TeraSort step and the chunked exchange on the card
+against the same calls on the CPU. Marked ``cuda``; each skips with a
 reason where there is no card. This file imports no JAX, so it runs on a
 machine without it:
 
@@ -110,3 +112,117 @@ def test_chunked_exchange_on_card_matches_cpu(cuda, impl):
     assert launched == (rounds if impl == "ring" else 0)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+TILE_WORDS = tre.TMA_TILE_BYTES // 4
+
+
+def _bodies_launched(fn):
+    """``fn()`` and the kernel launches it made, per body."""
+    before = dict(tre.BODIES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before.get(k, 0) for k, v in tre.BODIES.items()
+                 if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 8])
+@pytest.mark.parametrize("c,w", [
+    (100, 4),                      # a block smaller than one tile
+    (TILE_WORDS // 2, 2),          # exactly one tile
+    (TILE_WORDS // 4 + 1, 4),      # one tile + 16 bytes
+    (3 * TILE_WORDS // 4 + 7, 4),  # three tiles + a 112-byte tail
+])
+def test_tma_body_at_tile_edges(cuda, d, c, w):
+    x = _blocks((d, d, c, w), d * 1000 + c + w, cuda)
+    got, bodies = _bodies_launched(lambda: tre.ring_all_to_all(x))
+    assert bodies == {"tma": 1}
+    assert torch.equal(got, tre.ring_all_to_all_plain(x))
+
+
+@pytest.mark.parametrize("stages,ctas_per_sm", [(2, 1), (3, 2), (8, 1)])
+def test_tma_body_pipeline_depths(cuda, stages, ctas_per_sm):
+    """Other stage counts and grids than the default, with more tiles
+    per CTA than stages: the stage parities wrap several times."""
+    x = _blocks((8, 8, 5 * TILE_WORDS // 4 + 3, 4), stages, cuda)
+    out = torch.empty_like(x)
+    src, dst = tre._pointer_table(x, out)
+    tre._launch(x, out, "tma", src, dst, tile_bytes=4096, stages=stages,
+                ctas_per_sm=ctas_per_sm)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tre.ring_all_to_all_plain(x))
+
+
+@pytest.mark.parametrize("offset,c,w", [(1, 6, 8), (0, 3, 3), (0, 5, 7)])
+def test_unaligned_views_take_the_load_store_body(cuda, offset, c, w):
+    """A base 4 bytes off 16, or a block size that is no multiple of 16:
+    the load/store body, bit-equal all the same."""
+    d = 4
+    flat = _blocks((offset + d * d * c * w,), 7 + c, cuda)
+    x = flat[offset:].view(d, d, c, w)
+    got, bodies = _bodies_launched(lambda: tre.ring_all_to_all(x))
+    assert bodies == {"ldst": 1}
+    assert torch.equal(got, tre.ring_all_to_all_plain(x))
+
+
+def test_tma_body_refuses_a_misaligned_base(cuda):
+    """Asked for the TMA body on a misaligned base, the launcher refuses
+    and the wrapper raises; nothing is copied."""
+    flat = _blocks((1 + 2 * 2 * 4 * 4,), 5, cuda)
+    x = flat[1:].view(2, 2, 4, 4)
+    out = torch.zeros_like(x)
+    src, dst = tre._pointer_table(x, out)
+    with pytest.raises(RuntimeError, match="tma body"):
+        tre._launch(x, out, "tma", src, dst)
+    torch.cuda.synchronize()
+    assert not out.any()
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 1000, 4), (8, 8, 3, 3)])
+def test_launch_replays_in_a_cuda_graph(cuda, shape):
+    """A launch captured in a CUDA graph and replayed on new input
+    equals the plain version on that input (both bodies)."""
+    static_in = _blocks(shape, 1, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm-up outside the capture
+        tre.ring_all_to_all(static_in)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = tre.ring_all_to_all(static_in)
+    for seed in (2, 3):
+        fresh = _blocks(shape, seed, cuda)
+        static_in.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, tre.ring_all_to_all_plain(fresh))
+
+
+def test_launches_on_a_side_stream(cuda):
+    """The kernel runs on the caller's current stream: launched on a side
+    stream behind the producer of its input, it sees that input."""
+    main = torch.cuda.current_stream()
+    x = _blocks((8, 8, 4096, 2), 4, cuda)
+    y = x + 1                                   # produced on the main stream
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        outs = [tre.ring_all_to_all(y) for _ in range(3)]
+    main.wait_stream(side)
+    for out in outs:
+        out.record_stream(main)
+    torch.cuda.synchronize()
+    want = tre.ring_all_to_all_plain(y)
+    for out in outs:
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("c,w,body", [(4, 1, "tma"), (3, 1, "ldst")])
+def test_most_shards(cuda, c, w, body):
+    """``MAX_SHARDS`` shards: the whole pointer table in use."""
+    d = tre.MAX_SHARDS
+    x = _blocks((d, d, c, w), c, cuda)
+    got, bodies = _bodies_launched(lambda: tre.ring_all_to_all(x))
+    assert bodies == {body: 1}
+    assert torch.equal(got, x.transpose(0, 1).contiguous())

@@ -87,3 +87,76 @@ def test_wrapper_refuses_other_devices():
     x = torch.empty((2, 2, 3, 3), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tre.ring_all_to_all(x)
+
+
+def test_pointer_table_layout():
+    """Shard i's source base is ``i * D*C*W*4`` bytes into ``blocks`` and
+    its destination base as far into ``out``; the block for shard j lies
+    ``j * C*W*4`` bytes past the source base."""
+    import ctypes
+
+    d, c, w = 3, 5, 7
+    blocks = torch.arange(d * d * c * w, dtype=torch.int32).reshape(d, d, c, w)
+    out = torch.empty_like(blocks)
+    src, dst = tre._pointer_table(blocks, out)
+    shard, block = d * c * w * 4, c * w * 4
+    assert src == [blocks.data_ptr() + i * shard for i in range(d)]
+    assert dst == [out.data_ptr() + i * shard for i in range(d)]
+    for i in range(d):
+        for j in range(d):
+            got = ctypes.string_at(src[i] + j * block, block)
+            assert got == blocks[i, j].numpy().tobytes(), (i, j)
+
+
+def test_pointer_table_refuses_more_than_max_shards():
+    ok = torch.zeros((tre.MAX_SHARDS,) * 2 + (1, 1), dtype=torch.int32)
+    src, dst = tre._pointer_table(ok, torch.empty_like(ok))
+    assert len(src) == len(dst) == tre.MAX_SHARDS
+    big = torch.zeros((tre.MAX_SHARDS + 1,) * 2 + (1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"at most {tre.MAX_SHARDS} shards"):
+        tre._pointer_table(big, torch.empty_like(big))
+
+
+def test_bases_struct_matches_the_kernel_source():
+    """``_Bases`` mirrors ``struct Bases`` in the CUDA source: the same
+    shard limit, 2 KB, by value in the 4 KB parameter block."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(tre.__file__).resolve().parents[1] / "csrc"
+           / "ring_exchange.cu").read_text()
+    limit = re.search(r"constexpr int kMaxShards = (\d+);", src)
+    assert limit and int(limit.group(1)) == tre.MAX_SHARDS
+    assert ctypes.sizeof(tre._Bases) == 2 * 8 * tre.MAX_SHARDS <= 4096 - 64
+
+
+A = 1 << 20   # a 16-byte-aligned base address
+
+
+@pytest.mark.parametrize("src,dst,block_bytes,body", [
+    ([A, A + 96], [A + 4096, A + 4192], 48, "tma"),
+    ([A], [A + 16], 16, "tma"),
+    ([A + 4, A + 100], [A + 4096, A + 4192], 48, "ldst"),   # source base
+    ([A, A + 96], [A + 4096, A + 4200], 48, "ldst"),        # one dest base
+    ([A, A + 40], [A + 4096, A + 4136], 20, "ldst"),        # block size
+    ([A, A + 8], [A + 4096, A + 4104], 8, "ldst"),
+])
+def test_body_choice_follows_alignment(src, dst, block_bytes, body):
+    assert tre.body_for(src, dst, block_bytes) == body
+
+
+@pytest.mark.parametrize("offset,c,w,body", [
+    (0, 4, 4, "tma"), (0, 8, 2, "tma"), (0, 3, 3, "ldst"),
+    (1, 4, 4, "ldst"), (4, 4, 4, "tma")])
+def test_body_choice_for_tensor_views(offset, c, w, body):
+    """The choice for real tensors: a contiguous view ``offset`` words into
+    an aligned buffer, blocks of ``c * w`` words."""
+    d = 3
+    flat = torch.zeros(offset + d * d * c * w + 4, dtype=torch.int32)
+    pad = (-flat.data_ptr() // 4) % 4          # align the buffer's start
+    flat = flat[pad:] if pad else flat
+    x = flat[offset:offset + d * d * c * w].view(d, d, c, w)
+    src, dst = tre._pointer_table(x, torch.empty_like(x))
+    assert tre.body_for(src, dst, c * w * 4) == (
+        body if torch.empty_like(x).data_ptr() % 16 == 0 else "ldst")
