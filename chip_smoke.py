@@ -32,8 +32,18 @@ printing one JSON line; any failure raises and the exit code is not 0:
    numpy oracle, then warm steps timed and one traced: ALS half-step over
    100M ratings, PageRank over 2**27 edges, the shuffle join, the TPC-DS
    star;
-7. small runs of every workload against their numpy oracles;
-8. the kernel table line, then the device line last.
+7. the TPC-DS q95 and q64 plans (BASELINE.md config #4), the same way:
+   q95 over SF10's 7,197,568 web_sales rows, q64 at the largest size its
+   16-bit keys admit, each per-shard partial held to a numpy oracle;
+8. the device plane's host drivers over 1 GiB of 100-byte rows (BASELINE.md
+   config #1's size) in rounds sized from a 64 MiB device memory budget:
+   ``run_fused_exchange`` pipelined and sequential (byte-equal, each shard
+   equal to a numpy stable sort of its rows), with the host's time per
+   round in staging, dispatch, collect and merge; then
+   ``run_hierarchical_exchange`` over two slices of 4 shards, byte-equal
+   to the flat driver, with its cross-slice bytes;
+9. small runs of every workload against their numpy oracles;
+10. the kernel table line, then the device line last.
 """
 
 from __future__ import annotations
@@ -43,11 +53,18 @@ import json
 import statistics
 import subprocess
 import time
+import zlib
 
 import numpy as np
 import torch
 
-from sparkrdma_tpu_torch.models import als, join, pagerank, tpcds
+from sparkrdma_tpu_torch.models import (
+    als,
+    join,
+    pagerank,
+    tpcds,
+    tpcds_queries,
+)
 from sparkrdma_tpu_torch.models.terasort import (
     TeraSortConfig,
     generate_rows,
@@ -62,7 +79,15 @@ from sparkrdma_tpu_torch.parallel.exchange import (
     bucket_quota,
     chunked_exchange,
 )
+from sparkrdma_tpu_torch.parallel import topology
+from sparkrdma_tpu_torch.parallel.device_plane import (
+    auto_rows_per_round,
+    run_fused_exchange,
+    run_hierarchical_exchange,
+    stage_to_device,
+)
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+from sparkrdma_tpu_torch.utils.trace import Tracer
 from sparkrdma_tpu_torch.utils.u32 import (
     rows_from_numpy,
     shards_from_numpy,
@@ -106,6 +131,22 @@ JOIN_CFG = join.JoinConfig(rows_per_device_left=1 << 20,
 TPCDS_CFG = tpcds.TpcdsConfig(fact_rows_per_device=1 << 22,
                               dim1_size=1 << 20, dim2_size=1 << 20,
                               num_groups=1024, zipf_a=1.2, out_factor=4)
+# q95 over TPC-DS SF10's web_sales row count (7,197,568 rows); orders are
+# capped at 2**16 - 1 by the 16-bit pair-key convention of the plans
+Q95_CFG = tpcds_queries.Q95Config(ws_rows_per_device=899_696,
+                                  num_orders=65_535, out_factor=3)
+# q64 at the largest size its 16-bit keys admit (65,528 store and 65,528
+# catalog sales rows); TPC-DS SF1's 18,000 items
+Q64_CFG = tpcds_queries.Q64Config(ss_rows_per_device=8191,
+                                  cs_rows_per_device=8191, num_items=18_000,
+                                  zipf_a=1.3, out_factor=4)
+# the device plane's round drivers: 1 GiB of 100-byte rows (25 words, a
+# u64 key in words 0-1) in rounds sized from the default 64 MiB budget
+FUSED_ROWS = SHARDS * (DATA_BYTES // 100 // SHARDS)
+FUSED_WORDS = 25
+FUSED_BUDGET = 64 << 20
+FUSED_ROWS_PER_ROUND = auto_rows_per_round(4 * FUSED_WORDS, FUSED_BUDGET, 2)
+HIER_TOPOLOGY = topology.Topology((4, 4))
 
 
 def emit(obj) -> None:
@@ -166,7 +207,8 @@ def phase_device() -> str:
     print(smi, flush=True)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "numpy": np.__version__})
     return smi
 
 
@@ -669,6 +711,265 @@ def phase_tpcds(mesh: VirtualMesh, row: dict) -> int:
     return launches
 
 
+def _worst_pair(src: np.ndarray, dst: np.ndarray) -> int:
+    """The largest row count one (source shard, destination shard) pair
+    of a shuffle carries."""
+    live = dst >= 0
+    return int(np.bincount(src[live] * SHARDS + dst[live],
+                           minlength=SHARDS * SHARDS).max())
+
+
+def _owner(keys: np.ndarray) -> np.ndarray:
+    return tpcds_queries._np_owner(keys, SHARDS)
+
+
+def _query_phase(name: str, mesh: VirtualMesh, row: dict, cfg, tables,
+                 run, make_step, by_shard, spans) -> dict:
+    """One TPC-DS plan through its runner (kernel launches counted per
+    block shape, the kernel held to its plain version at each), its totals
+    and per-shard partials held to the numpy oracle, warm steps timed and
+    one traced. Returns the phase's record."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got, launches, shapes = _launches(
+        name, lambda: run(mesh, cfg, tables=tables))
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ring_shapes = _check_path_shapes(row, name, shapes)
+    t0 = time.perf_counter()
+    want_by_shard = by_shard(*tables, cfg, SHARDS)
+    oracle_s = time.perf_counter() - t0
+    want = tuple(int(x) for x in want_by_shard.sum(axis=0))
+    if got != want:
+        raise AssertionError(f"{name} {got} != oracle {want}")
+    step = make_step(mesh, cfg)
+    args = [stage_to_device(tpcds_queries.pad_rows_to_devices(t, SHARDS),
+                            mesh) for t in tables]
+    partial, overflowed = step(*args)
+    if overflowed.any().item():
+        raise AssertionError(f"{name} step overflowed")
+    np.testing.assert_array_equal(partial.cpu().numpy().astype(np.int64),
+                                  want_by_shard)
+    times = _host_times_ms(lambda: step(*args), WORKLOAD_SAMPLES)
+    emit({"phase": f"{name}_profile",
+          **_trace(lambda: step(*args), spans + ("exchange.",))})
+    return {"phase": name, "totals": list(got), "exact": True,
+            # the tables' bytes: numpy versions may draw other samples
+            # from the same seed
+            "tables_crc32": [zlib.crc32(t.tobytes()) for t in tables],
+            "per_shard_exact": True,
+            "partials": partial.cpu().numpy().tolist(),
+            "ring_launches": launches, "ring_shapes": ring_shapes,
+            "first_call_s": first_s, "step_times": _timing(times),
+            "peak_device_bytes": peak, "oracle_s": oracle_s,
+            "overflowed": overflowed.cpu().tolist()}
+
+
+def phase_q95(mesh: VirtualMesh, row: dict) -> int:
+    """TPC-DS q95 over SF10's web_sales row count, exact against the
+    oracle in total and per shard; warm steps timed, one traced."""
+    cfg = Q95_CFG
+    t0 = time.perf_counter()
+    tables = tpcds_queries.generate_q95(cfg, SHARDS, seed=0)
+    generate_s = time.perf_counter() - t0
+    ws = tables[0]
+    record = _query_phase("q95", mesh, row, cfg, tables,
+                          tpcds_queries.run_q95, tpcds_queries.make_q95_step,
+                          tpcds_queries.numpy_q95_by_shard,
+                          ("q95.",))
+    # the four fact routes: every row moves in each, from the shard the
+    # previous route left it on
+    src = np.arange(len(ws)) // cfg.ws_rows_per_device
+    pairs = {}
+    for route, col in (("date", 2), ("addr", 3), ("site", 4), ("order", 0)):
+        dst = _owner(ws[:, col])
+        pairs[route] = _worst_pair(src, dst)
+        src = dst
+    record.update({
+        "ws_rows": int(len(ws)), "orders": cfg.num_orders,
+        "rows_per_order": len(ws) / cfg.num_orders,
+        "worst_pair_by_route": pairs,
+        "slot_rows": cfg.ws_rows_per_device * cfg.out_factor // SHARDS,
+        "ws_rows_per_s": len(ws) / record["step_times"]["median_ms"] * 1e3,
+        "generate_s": generate_s})
+    emit(record)
+    return record["ring_launches"]
+
+
+def phase_q64(mesh: VirtualMesh, row: dict) -> int:
+    """TPC-DS q64 at the largest size its 16-bit keys admit, exact against
+    the oracle in total and per shard; warm steps timed, one traced."""
+    cfg = Q64_CFG
+    t0 = time.perf_counter()
+    tables = tpcds_queries.generate_q64(cfg, SHARDS, seed=0)
+    generate_s = time.perf_counter() - t0
+    ss, _, cs, _, _ = tables
+    record = _query_phase("q64", mesh, row, cfg, tables,
+                          tpcds_queries.run_q64, tpcds_queries.make_q64_step,
+                          tpcds_queries.numpy_q64_by_shard,
+                          ("q64.",))
+    cs_pk = tpcds_queries._pairkey(cs[:, 0], cs[:, 1])
+    ss_pk = tpcds_queries._pairkey(ss[:, 0], ss[:, 1])
+    record.update({
+        "ss_rows": int(len(ss)), "cs_rows": int(len(cs)),
+        "num_items": cfg.num_items,
+        "hot_item_share_ss": float(np.bincount(ss[:, 0]).max() / len(ss)),
+        "worst_pair_by_route": {
+            "cs_by_pair": _worst_pair(
+                np.arange(len(cs)) // cfg.cs_rows_per_device, _owner(cs_pk)),
+            "cs_by_item": _worst_pair(_owner(cs_pk), _owner(cs[:, 0])),
+            "ss_by_pair": _worst_pair(
+                np.arange(len(ss)) // cfg.ss_rows_per_device,
+                _owner(ss_pk))},
+        "slot_rows": cfg.ss_rows_per_device * cfg.out_factor // SHARDS,
+        "rows_per_s": (len(ss) + len(cs))
+        / record["step_times"]["median_ms"] * 1e3,
+        "generate_s": generate_s})
+    emit(record)
+    return record["ring_launches"]
+
+
+def _round_host_ms(tracer: Tracer) -> dict:
+    """Host milliseconds the driver spent per part, from its spans:
+    staging (padding into the pinned buffers and queueing the upload),
+    dispatch (queueing the step and the download), collect (waiting for
+    the round and copying its rows out) and merge."""
+    def total(name):
+        return sum(e["dur"] for e in tracer.events(name)) / 1e3
+    rounds = len(tracer.events("exchange.round"))
+    parts = {"staging": total("exchange.stage"),
+             "dispatch": total("exchange.round") - total("exchange.stage"),
+             "collect": total("exchange.collect"),
+             "merge": total("exchange.merge")}
+    return {"total_ms": parts,
+            "per_round_ms": {k: v / max(1, rounds) for k, v in parts.items()
+                             if k != "merge"}}
+
+
+def _fused_rows():
+    """1 GiB of 100-byte rows from seed 0: a uniform random u64 key in
+    words 0-1 (word 1 the high word), 23 random payload words, and the
+    destination shard ``key % 8``."""
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, 2**32, (FUSED_ROWS, FUSED_WORDS), dtype=np.uint32)
+    keys = rows[:, :2].copy().view(np.uint64).reshape(-1)
+    return rows, keys, (keys % SHARDS).astype(np.int32)
+
+
+def phase_fused_rounds(mesh: VirtualMesh, row: dict):
+    """``run_fused_exchange`` over 1 GiB in budget-sized rounds, pipelined
+    and sequential, each shard held to a numpy stable sort of its rows by
+    u64 key; one more run traced. Returns (launches, rows, dest, result)
+    for the hierarchical phase."""
+    t0 = time.perf_counter()
+    rows, keys, dest = _fused_rows()
+    generate_s = time.perf_counter() - t0
+    distinct = int(np.unique(keys).size)
+    kw = dict(key_words=2, rows_per_round=FUSED_ROWS_PER_ROUND,
+              out_factor=2)
+    tracer = Tracer()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (piped, rounds), launches, shapes = _launches(
+        "fused_rounds",
+        lambda: run_fused_exchange(mesh, rows, dest, tracer=tracer, **kw))
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ring_shapes = _check_path_shapes(row, "fused_rounds", shapes)
+    seq_tracer = Tracer()
+    t0 = time.perf_counter()
+    seq, seq_rounds = run_fused_exchange(mesh, rows, dest,
+                                         pipeline_rounds=False,
+                                         tracer=seq_tracer, **kw)
+    seq_s = time.perf_counter() - t0
+    if seq_rounds != rounds:
+        raise AssertionError(f"sequential ran {seq_rounds} rounds, "
+                             f"pipelined {rounds}")
+    t0 = time.perf_counter()
+    for d in range(SHARDS):
+        np.testing.assert_array_equal(piped[d], seq[d],
+                                      err_msg=f"pipelined != sequential, "
+                                      f"shard {d}")
+        mine = dest == d
+        want = rows[mine][np.argsort(keys[mine], kind="stable")]
+        np.testing.assert_array_equal(piped[d], want,
+                                      err_msg=f"fused rounds, shard {d}")
+    oracle_s = time.perf_counter() - t0
+    del seq
+    emit({"phase": "fused_rounds_profile",
+          **_trace(lambda: run_fused_exchange(mesh, rows, dest, **kw),
+                   ("exchange.", "fused."))})
+    emit({"phase": "fused_rounds", "rows": FUSED_ROWS,
+          "row_bytes": 4 * FUSED_WORDS, "data_bytes": int(rows.nbytes),
+          "distinct_keys": distinct, "hbm_budget": FUSED_BUDGET,
+          "rows_per_round": FUSED_ROWS_PER_ROUND, "rounds": rounds,
+          "last_round_rows": FUSED_ROWS
+          - (rounds - 1) * FUSED_ROWS_PER_ROUND * SHARDS,
+          "overlap_instants": len(tracer.events("exchange.overlap")),
+          "round_spans": len(tracer.events("exchange.round")),
+          "wall_s": wall_s, "gb_per_s": rows.nbytes / wall_s / 1e9,
+          "sequential_wall_s": seq_s,
+          "sequential_gb_per_s": rows.nbytes / seq_s / 1e9,
+          "host_ms": _round_host_ms(tracer),
+          "sequential_host_ms": _round_host_ms(seq_tracer),
+          "ring_launches": launches, "ring_shapes": ring_shapes,
+          "peak_device_bytes": peak, "pipelined_equals_sequential": True,
+          "exact": True, "generate_s": generate_s, "oracle_s": oracle_s})
+    return launches, rows, dest, piped
+
+
+def phase_hierarchical(mesh: VirtualMesh, row: dict, rows: np.ndarray,
+                       dest: np.ndarray, flat: list) -> int:
+    """The same rows through ``run_hierarchical_exchange`` on two slices
+    of 4 shards, each row homed in its source shard's slice, with the
+    same budget; byte-equal to the flat driver's result, cross-slice
+    bytes equal to the residue's; one more run traced."""
+    topo = HIER_TOPOLOGY
+    source = np.arange(len(rows)) // (len(rows) // SHARDS)
+    home = topo.device_slices()[source]
+    kw = dict(key_words=2, rows_per_round=FUSED_ROWS_PER_ROUND,
+              out_factor=2)
+    tracer = Tracer()
+    before = topology.cross_slice_snapshot()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (hier, rounds), launches, shapes = _launches(
+        "hierarchical", lambda: run_hierarchical_exchange(
+            mesh, topo, rows, dest, home, tracer=tracer, **kw))
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    after = topology.cross_slice_snapshot()
+    ring_shapes = _check_path_shapes(row, "hierarchical", shapes)
+    for d in range(SHARDS):
+        np.testing.assert_array_equal(hier[d], flat[d],
+                                      err_msg=f"hierarchical, shard {d}")
+    residue = int((topo.device_slices()[dest] != home).sum())
+    moved = after["bytes"] - before["bytes"]
+    if moved != residue * rows.shape[1] * 4:
+        raise AssertionError(f"cross-slice bytes {moved} != residue "
+                             f"{residue} rows")
+    del hier
+    phases = {}
+    for e in tracer.events("exchange.round"):
+        key = f'{e["args"]["phase"]}/slice{e["args"]["slice"]}'
+        phases[key] = phases.get(key, 0) + 1
+    emit({"phase": "hierarchical_profile",
+          **_trace(lambda: run_hierarchical_exchange(mesh, topo, rows, dest,
+                                                     home, **kw),
+                   ("exchange.", "fused."))})
+    emit({"phase": "hierarchical", "slices": list(topo.slice_sizes),
+          "rows": int(len(rows)), "rounds": rounds,
+          "slice_rounds_by_phase": phases,
+          "degrades": len(tracer.events("exchange.degrade")),
+          "cross_slice_moves": after["moves"] - before["moves"],
+          "cross_slice_bytes": moved, "residue_rows": residue,
+          "wall_s": wall_s, "gb_per_s": rows.nbytes / wall_s / 1e9,
+          "host_ms": _round_host_ms(tracer),
+          "ring_launches": launches, "ring_shapes": ring_shapes,
+          "peak_device_bytes": peak, "equals_flat": True})
+    return launches
+
+
 def phase_small_runs(mesh: VirtualMesh) -> None:
     """Small runs of every workload on the card against the numpy
     oracles: integers exact, floats at the tests' tolerances."""
@@ -727,6 +1028,21 @@ def phase_small_runs(mesh: VirtualMesh) -> None:
         for got, want in zip(tpcds.run_tpcds(mesh, cfg, star=star),
                              tpcds.numpy_tpcds(*star, cfg.num_groups)):
             np.testing.assert_array_equal(got, want)
+
+    for run, gen, oracle, cfg in (
+            (tpcds_queries.run_q95, tpcds_queries.generate_q95,
+             tpcds_queries.numpy_q95,
+             tpcds_queries.Q95Config(ws_rows_per_device=768,
+                                     num_orders=600)),
+            (tpcds_queries.run_q64, tpcds_queries.generate_q64,
+             tpcds_queries.numpy_q64,
+             tpcds_queries.Q64Config(ss_rows_per_device=640,
+                                     cs_rows_per_device=512,
+                                     num_items=300))):
+        tables = gen(cfg, SHARDS, 9)
+        if run(mesh, cfg, tables=tables) != oracle(*tables, cfg):
+            raise AssertionError(f"small {run.__name__} disagrees with "
+                                 "its oracle")
     emit({"phase": "small_runs", "chunked_rounds": rounds,
           "als_rounds": als_rounds, "als_rmse": history,
           "all_match_oracles": True})
@@ -744,6 +1060,13 @@ def main() -> None:
     launches["pagerank"] = phase_pagerank(mesh, row)
     launches["join"] = phase_join(mesh, row)
     launches["tpcds"] = phase_tpcds(mesh, row)
+    launches["q95"] = phase_q95(mesh, row)
+    launches["q64"] = phase_q64(mesh, row)
+    launches["fused_rounds"], rows, dest, flat = phase_fused_rounds(mesh,
+                                                                    row)
+    launches["hierarchical"] = phase_hierarchical(mesh, row, rows, dest,
+                                                  flat)
+    del rows, dest, flat
     phase_small_runs(mesh)
     row["launches"] = sum(launches.values())
     row["launches_by_path"] = launches

@@ -315,6 +315,31 @@ def shuffle_shard(data: torch.Tensor, dest: torch.Tensor,
     return ragged_exchange_shard(grouped, counts, output, impl)
 
 
+@functools.lru_cache(maxsize=64)
+def make_shuffle_exchange(mesh, impl: str = "auto", out_factor: int = 1):
+    """The all-shard shuffle exchange over ``mesh`` (a ``VirtualMesh``),
+    memoized per ``(mesh, impl, out_factor)`` as the JAX function is, so
+    per-job callers share one.
+
+    Returns ``exchange(data [D, capacity, ...], dest [D, capacity]) ->
+    (received [D, capacity * out_factor, ...], recv_counts int32[D, D],
+    recv_offsets int32[D, D], overflowed bool[D])``; ``overflowed[d]`` is
+    shard d's receive-overflow flag (capacity or slot pair): check it
+    before trusting ``received``. ``out_factor`` scales each shard's
+    receive capacity against its send capacity, since a receiver may net
+    more rows than it sent (skew)."""
+    impl = resolve_transport(mesh, impl)
+
+    def exchange(data: torch.Tensor, dest: torch.Tensor):
+        output = torch.zeros((data.shape[0], data.shape[1] * out_factor)
+                             + tuple(data.shape[2:]), dtype=data.dtype,
+                             device=data.device)
+        return shuffle_shard(data, dest.reshape(data.shape[:2]), output,
+                             impl)
+
+    return exchange
+
+
 # -- the chunked exchange: bounded rounds at any skew -----------------------
 
 def bucket_quota(quota: int) -> int:

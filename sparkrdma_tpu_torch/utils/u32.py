@@ -43,6 +43,13 @@ def to_bits(values: torch.Tensor) -> torch.Tensor:
     return (((values & MASK) ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
+def from_u64(values: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Zero-extended int64 u32 values in ``like``'s dtype: int32 bit
+    patterns when ``like`` carries its u32 values as int32."""
+    return to_bits(values) if like.dtype == torch.int32 else values.to(
+        like.dtype)
+
+
 def shards_from_numpy(values: np.ndarray, mesh) -> torch.Tensor:
     """``[D*n, ...]`` host array -> ``[D, n, ...]`` on the mesh's device,
     dtype kept (shard d holds entries ``[d*n, (d+1)*n)``, the JAX

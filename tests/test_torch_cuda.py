@@ -2,8 +2,9 @@
 plain version (at the TeraSort, chunked and workload block widths; both
 bodies, at the TMA body's tile edges and pipeline depths, at the shard
 limit, on a side stream and replayed in a CUDA graph), its argument
-checks, and the TeraSort step and the chunked exchange on the card
-against the same calls on the CPU. Marked ``cuda``; each skips with a
+checks, the TeraSort step and the chunked exchange on the card against
+the same calls on the CPU, q95 and q64 on the ring against ``dense``,
+pinned staging, and the round and hierarchical drivers. Marked ``cuda``; each skips with a
 reason where there is no card. This file imports no JAX, so it runs on a
 machine without it:
 
@@ -226,3 +227,93 @@ def test_most_shards(cuda, c, w, body):
     got, bodies = _bodies_launched(lambda: tre.ring_all_to_all(x))
     assert bodies == {body: 1}
     assert torch.equal(got, x.transpose(0, 1).contiguous())
+
+
+def test_tpcds_queries_ring_equals_dense_on_card(cuda):
+    """q95 and q64 at small size: the per-shard partials on the ring (the
+    kernel) equal those on ``dense`` bit for bit, and their sums the
+    numpy oracles; the ring path launches the kernel 8 times per query."""
+    from sparkrdma_tpu_torch.models import tpcds_queries as tq
+    from sparkrdma_tpu_torch.parallel.device_plane import stage_to_device
+    from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+
+    mesh = VirtualMesh(8, cuda)
+    for cfg, gen, make, by_shard in (
+            (tq.Q95Config(ws_rows_per_device=768, num_orders=600),
+             tq.generate_q95, tq.make_q95_step, tq.numpy_q95_by_shard),
+            (tq.Q64Config(ss_rows_per_device=640, cs_rows_per_device=512,
+                          num_items=300), tq.generate_q64, tq.make_q64_step,
+             tq.numpy_q64_by_shard)):
+        tables = gen(cfg, 8, 9)
+        args = [stage_to_device(tq.pad_rows_to_devices(t, 8), mesh)
+                for t in tables]
+        outs = {}
+        for impl in ("ring", "dense"):
+            before = tre.LAUNCHES
+            outs[impl] = [t.cpu() for t in make(mesh, cfg, impl)(*args)]
+            torch.cuda.synchronize()
+            assert tre.LAUNCHES - before == (8 if impl == "ring" else 0)
+        for got, want in zip(outs["ring"], outs["dense"]):
+            assert torch.equal(got, want)
+        assert not outs["ring"][1].any()
+        np.testing.assert_array_equal(outs["ring"][0].numpy(),
+                                      by_shard(*tables, cfg, 8))
+
+
+def test_stage_to_device_goes_through_pinned_memory(cuda):
+    from sparkrdma_tpu_torch.parallel import device_plane as tdp
+    from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+
+    arr = np.arange(64 * 3, dtype=np.uint32).reshape(64, 3)
+    arr[5, 1] = 2**32 - 1
+    staged = tdp.stage_to_device(arr, VirtualMesh(8, cuda))
+    assert staged.is_cuda and staged.shape == (8, 8, 3)
+    np.testing.assert_array_equal(
+        staged.cpu().numpy().reshape(64, 3).view(np.uint32), arr)
+    # the round driver's staging slots are pinned, and a slot is refilled
+    # only after its last upload has landed
+    io = tdp._RoundIO(cuda, 2)
+    chunk = arr[:40]
+    rows_d, dest_d = io.upload(0, chunk, np.arange(40, dtype=np.int32) % 8,
+                               8, 64)
+    assert io._up[0][0].is_pinned() and io._up[0][1].is_pinned()
+    rows_d2, _ = io.upload(0, arr[40:], np.zeros(24, np.int32), 8, 64)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        rows_d.cpu().numpy().reshape(64, 3)[:40].view(np.uint32), chunk)
+    assert (rows_d.cpu().numpy().reshape(64, 3)[40:] == 0).all()
+    assert (dest_d.cpu().numpy().reshape(-1)[40:] == -1).all()
+    np.testing.assert_array_equal(
+        rows_d2.cpu().numpy().reshape(64, 3)[:24].view(np.uint32), arr[40:])
+
+
+def test_round_drivers_on_card(cuda):
+    """The double-buffered driver on the card: pipelined and sequential
+    runs are byte-equal and equal the CPU's; the hierarchical driver on
+    two slices equals the flat one; the ring launches once per round."""
+    from sparkrdma_tpu_torch.parallel import device_plane as tdp
+    from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+    from sparkrdma_tpu_torch.parallel.topology import Topology
+
+    rng = np.random.default_rng(12)
+    n_rows = 20000
+    rows = rng.integers(0, 2**32, (n_rows, 25), dtype=np.uint32)
+    dest = (rows[:, :2].copy().view(np.uint64).reshape(-1) % 8).astype(
+        np.int32)
+    home = (np.arange(n_rows) * 8 // n_rows // 4).astype(np.int32)
+    kw = dict(key_words=2, rows_per_round=1000, out_factor=2)
+    mesh = VirtualMesh(8, cuda)
+    before = tre.LAUNCHES
+    piped, rounds = tdp.run_fused_exchange(mesh, rows, dest, **kw)
+    assert rounds == 3 and tre.LAUNCHES - before == rounds
+    seq, _ = tdp.run_fused_exchange(mesh, rows, dest, pipeline_rounds=False,
+                                    **kw)
+    cpu, _ = tdp.run_fused_exchange(VirtualMesh(8, "cpu"), rows, dest,
+                                    impl="ring", **kw)
+    hier, _ = tdp.run_hierarchical_exchange(mesh, Topology((4, 4)), rows,
+                                            dest, home, **kw)
+    for d in range(8):
+        for other in (seq, cpu, hier):
+            np.testing.assert_array_equal(piped[d], other[d])
+        keys = piped[d][:, :2].copy().view(np.uint64).reshape(-1)
+        assert (keys % 8 == d).all() and (keys[:-1] <= keys[1:]).all()

@@ -36,7 +36,9 @@ def test_port_has_sources():
     for must in ("ops/ring_exchange.py", "parallel/exchange.py",
                  "parallel/device_plane.py", "models/terasort.py",
                  "models/als.py", "models/pagerank.py", "models/join.py",
-                 "models/tpcds.py"):
+                 "models/tpcds.py", "models/tpcds_queries.py",
+                 "ops/sort.py", "ops/aggregate.py", "parallel/topology.py",
+                 "utils/trace.py"):
         assert must in names
     assert (PORT / "csrc" / "ring_exchange.cu").exists()
 
