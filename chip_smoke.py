@@ -42,8 +42,21 @@ printing one JSON line; any failure raises and the exit code is not 0:
    round in staging, dispatch, collect and merge; then
    ``run_hierarchical_exchange`` over two slices of 4 shards, byte-equal
    to the flat driver, with its cross-slice bytes;
-9. small runs of every workload against their numpy oracles;
-10. the kernel table line, then the device line last.
+9. the mesh shuffle service (``shuffle/mesh_service.py``) over an engine
+   shuffle stage: 1 GiB of 100-byte records committed as 8 map outputs
+   of 128 MiB into 4 in-memory executor stores (``shuffle/local_store``;
+   map 0 on two of them), hash-partitioned into 200 reduce partitions,
+   reduced on the card by the fused driver in budget-sized rounds (the
+   headline: wall time, GB/s, the host's time per part from the tracer,
+   one more run traced), the fused driver in one shot, the one-shot
+   ``run_mesh_reduce``, the streamed reduce pipelined and sequential, and
+   the hierarchical reduce on two slices of 4 shards; each held to one
+   numpy oracle (byte-equal per shard; per partition for the
+   hierarchical run), then ``split_by_partition`` and
+   ``CachedPartitionReader`` over run 1's result, and ``read_to_device``
+   of the 8 committed outputs (1 GiB) with its GB/s;
+10. small runs of every workload against their numpy oracles;
+11. the kernel table line, then the device line last.
 """
 
 from __future__ import annotations
@@ -87,6 +100,10 @@ from sparkrdma_tpu_torch.parallel.device_plane import (
     stage_to_device,
 )
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+from sparkrdma_tpu_torch.shuffle import mesh_service
+from sparkrdma_tpu_torch.shuffle.local_store import LocalExecutor
+from sparkrdma_tpu_torch.shuffle.manager import PartitionerSpec, ShuffleHandle
+from sparkrdma_tpu_torch.shuffle.reader import read_to_device
 from sparkrdma_tpu_torch.utils.trace import Tracer
 from sparkrdma_tpu_torch.utils.u32 import (
     rows_from_numpy,
@@ -147,6 +164,27 @@ FUSED_WORDS = 25
 FUSED_BUDGET = 64 << 20
 FUSED_ROWS_PER_ROUND = auto_rows_per_round(4 * FUSED_WORDS, FUSED_BUDGET, 2)
 HIER_TOPOLOGY = topology.Topology((4, 4))
+# the mesh-service stage: 100-byte records (the Sort Benchmark's record: an
+# 8-byte key, a 92-byte payload) in map inputs of 128 MiB (Spark's
+# spark.sql.files.maxPartitionBytes default), 1 GiB in all, over 200
+# reduce partitions (spark.sql.shuffle.partitions default), 2 maps per
+# executor; rounds from the engine's default 64 MiB budget, receive
+# headroom the engine's 2 * ceil(D / min(P, D))
+MS_PAYLOAD = 92
+MS_PARTITIONS = 200
+MS_MAPS = 8
+MS_EXECUTORS = 4
+MS_MAP_ROWS = (128 << 20) // (8 + MS_PAYLOAD)
+MS_ROWS = MS_MAPS * MS_MAP_ROWS
+MS_OUT_FACTOR = 2 * -(-SHARDS // min(MS_PARTITIONS, SHARDS))
+MS_ROWS_PER_ROUND = auto_rows_per_round(
+    4 * mesh_service.device_row_words(MS_PAYLOAD), FUSED_BUDGET,
+    MS_OUT_FACTOR)
+MS_HANDLE = ShuffleHandle(shuffle_id=7, num_maps=MS_MAPS,
+                          num_partitions=MS_PARTITIONS,
+                          row_payload_bytes=MS_PAYLOAD,
+                          partitioner=PartitionerSpec("hash"))
+MS_READER_RANGES = ((0, 1), (17, 42), (199, 200), (0, MS_PARTITIONS))
 
 
 def emit(obj) -> None:
@@ -970,6 +1008,238 @@ def phase_hierarchical(mesh: VirtualMesh, row: dict, rows: np.ndarray,
     return launches
 
 
+def _mesh_stage():
+    """The stage's records from seed 0 (uniform random u64 keys, random
+    payload bytes), committed as ``MS_MAPS`` map outputs, map ``m`` into
+    executor ``m // 2``'s store and map 0 again into executor 1's (a
+    speculative copy: staging must read it once). Returns (executors,
+    keys, payload, seconds to generate, seconds to commit)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    keys = rng.integers(0, 2**64, MS_ROWS, dtype=np.uint64)
+    payload = np.frombuffer(rng.bytes(MS_ROWS * MS_PAYLOAD),
+                            np.uint8).reshape(MS_ROWS, MS_PAYLOAD)
+    generate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    partitioner = MS_HANDLE.partitioner.build(MS_PARTITIONS)
+    executors = [LocalExecutor() for _ in range(MS_EXECUTORS)]
+    for m, e in [(m, m // 2) for m in range(MS_MAPS)] + [(0, 1)]:
+        rows = slice(m * MS_MAP_ROWS, (m + 1) * MS_MAP_ROWS)
+        executors[e].resolver.commit(MS_HANDLE.shuffle_id, m, keys[rows],
+                                     payload[rows], partitioner,
+                                     MS_PARTITIONS)
+    return executors, keys, payload, generate_s, time.perf_counter() - t0
+
+
+def _mesh_oracle(keys: np.ndarray, payload: np.ndarray) -> list:
+    """Per shard, what every flat reduce must return: the rows whose
+    partition ``p`` has ``p % D == d``, stably sorted by key, with their
+    partition ids."""
+    parts = MS_HANDLE.partitioner.build(MS_PARTITIONS)(keys)
+    shard = parts % SHARDS
+    want = []
+    for d in range(SHARDS):
+        mine = np.flatnonzero(shard == d)
+        order = mine[np.argsort(keys[mine], kind="stable")]
+        want.append((keys[order], payload[order], parts[order]))
+    return want
+
+
+def _same_rows(name: str, got: list, want: list) -> None:
+    """Raise unless each shard's (keys, payload, partition ids) equal the
+    oracle's byte for byte."""
+    for d, (g, w) in enumerate(zip(got, want)):
+        for what, a, b in zip(("keys", "payload", "partition ids"), g, w):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"mesh_service {name}: shard {d} "
+                                     f"{what} differ from the oracle")
+
+
+def _mesh_host_ms(tracer: Tracer, wall_s: float) -> dict:
+    """The host's milliseconds per part of one traced fused reduce, from
+    its spans: read and decode of the committed outputs, ``_rows_to_u32``,
+    the partitioner, padding into the pinned buffers and queueing the
+    upload, queueing the step and the download, waiting for each round
+    and copying its rows out, the merge, the unpack; ``other`` is the
+    wall time no span covers (round blocks assembled from the batches)."""
+    def total(name):
+        return sum(e["dur"] for e in tracer.events(name)) / 1e3
+    parts = {"decode": total("mesh.decode"), "pack": total("mesh.pack"),
+             "partition": total("mesh.partition"),
+             "staging": total("exchange.stage"),
+             "dispatch": total("exchange.round") - total("exchange.stage"),
+             "collect": total("exchange.collect"),
+             "merge": total("exchange.merge"),
+             "unpack": total("mesh.unpack")}
+    parts["other"] = wall_s * 1e3 - sum(parts.values())
+    rounds = len(tracer.events("exchange.round"))
+    return {"total_ms": parts, "rounds": rounds,
+            "per_round_ms": {k: parts[k] / max(1, rounds)
+                             for k in ("staging", "dispatch", "collect")}}
+
+
+def _mesh_run(name: str, row: dict, launches: dict, fn) -> tuple:
+    """One reduce of the stage, its kernel launches counted and the
+    kernel held to its plain version at every block shape it was given.
+    Returns (result, record)."""
+    path = f"mesh_service/{name}"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result, launches[path], shapes = _launches(path, fn)
+    wall_s = time.perf_counter() - t0
+    record = {"wall_s": wall_s,
+              "gb_per_s": MS_ROWS * (8 + MS_PAYLOAD) / wall_s / 1e9,
+              "ring_launches": launches[path],
+              "peak_device_bytes": torch.cuda.max_memory_allocated(),
+              "ring_shapes": _check_path_shapes(row, path, shapes)}
+    return result, record
+
+
+def phase_mesh_service(mesh: VirtualMesh, row: dict) -> dict:
+    """The mesh shuffle service over one engine shuffle stage (see the
+    module docstring, phase 9). Returns the kernel's launches per path."""
+    executors, keys, payload, generate_s, commit_s = _mesh_stage()
+    t0 = time.perf_counter()
+    ordered = np.sort(keys)   # distinct keys by one sort, timed apart
+    distinct = 1 + int(np.count_nonzero(ordered[1:] != ordered[:-1]))
+    del ordered
+    distinct_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = _mesh_oracle(keys, payload)
+    oracle_s = time.perf_counter() - t0
+    del keys, payload
+    handle, launches, runs = MS_HANDLE, {}, {}
+    kw = dict(out_factor=MS_OUT_FACTOR, expect_maps=MS_MAPS)
+
+    # 1. the headline: the fused driver in budget-sized rounds
+    tracer = Tracer()
+    fused, runs["fused_rounds"] = _mesh_run(
+        "fused_rounds", row, launches,
+        lambda: mesh_service.run_mesh_reduce_fused(
+            executors, handle, mesh, rows_per_round=MS_ROWS_PER_ROUND,
+            tracer=tracer, **kw))
+    _same_rows("fused_rounds", fused, want)
+    runs["fused_rounds"]["host_ms"] = _mesh_host_ms(
+        tracer, runs["fused_rounds"]["wall_s"])
+    emit({"phase": "mesh_service_profile",
+          **_trace(lambda: mesh_service.run_mesh_reduce_fused(
+              executors, handle, mesh, rows_per_round=MS_ROWS_PER_ROUND,
+              **kw), ("exchange.", "fused."))})
+
+    # 2-4. one shot, fused and not; streamed, pipelined and sequential
+    for name, fn in (
+            ("fused_one_shot", lambda: mesh_service.run_mesh_reduce_fused(
+                executors, handle, mesh, **kw)),
+            ("one_shot", lambda: mesh_service.run_mesh_reduce(
+                executors, handle, mesh, sort_by_key=True, **kw)),
+            ("streamed", lambda: mesh_service.run_mesh_reduce_streamed(
+                executors, handle, mesh, **kw)),
+            ("streamed_sequential",
+             lambda: mesh_service.run_mesh_reduce_streamed(
+                 executors, handle, mesh, pipeline_rounds=False, **kw))):
+        result, runs[name] = _mesh_run(name, row, launches, fn)
+        _same_rows(name, result, want)
+        del result
+
+    # 5. two slices of 4 shards: partitions placed by the slice-aligned
+    # map, so compare per partition
+    before = topology.cross_slice_snapshot()
+    hier_tracer = Tracer()
+    hier, runs["hier"] = _mesh_run(
+        "hier", row, launches, lambda: mesh_service.run_mesh_reduce_hier(
+            executors, handle, mesh, HIER_TOPOLOGY, tracer=hier_tracer,
+            **kw))
+    after = topology.cross_slice_snapshot()
+    want_parts = mesh_service.split_by_partition(want, MS_PARTITIONS,
+                                                 MS_PAYLOAD)
+    for p, (got, exp) in enumerate(zip(mesh_service.split_by_partition(
+            hier, MS_PARTITIONS, MS_PAYLOAD), want_parts)):
+        if not (np.array_equal(got[0], exp[0])
+                and np.array_equal(got[1], exp[1])):
+            raise AssertionError(f"mesh_service hier: partition {p} "
+                                 "differs from the oracle")
+    # each partition is served by exactly one shard
+    serving = [len(np.unique(parts)) for _, _, parts in hier]
+    if sum(serving) != MS_PARTITIONS:
+        raise AssertionError(f"hier: {sum(serving)} (shard, partition) "
+                             f"pairs for {MS_PARTITIONS} partitions")
+    runs["hier"].update({
+        "slices": list(HIER_TOPOLOGY.slice_sizes),
+        "cross_slice_bytes": after["bytes"] - before["bytes"],
+        "cross_slice_moves": after["moves"] - before["moves"],
+        "cross_slice_share": (after["bytes"] - before["bytes"])
+        / (MS_ROWS * 4 * mesh_service.device_row_words(MS_PAYLOAD)),
+        "partitions_per_shard": serving,
+        "degrades": len(hier_tracer.events("exchange.degrade"))})
+    del hier
+
+    # 6. per-partition reads of run 1's result
+    per_partition = mesh_service.split_by_partition(fused, MS_PARTITIONS,
+                                                    MS_PAYLOAD)
+    del fused
+    reads = []
+    for lo, hi in MS_READER_RANGES:
+        reader = mesh_service.CachedPartitionReader(per_partition, lo, hi,
+                                                    MS_PAYLOAD)
+        k, p = reader.read_sorted()
+        wk = np.concatenate([want_parts[i][0] for i in range(lo, hi)])
+        wp = np.concatenate([want_parts[i][1] for i in range(lo, hi)])
+        order = np.argsort(wk, kind="stable")
+        if not (np.array_equal(k, wk[order])
+                and np.array_equal(p, wp[order])
+                and reader.metrics.local_bytes == len(k) * (8 + MS_PAYLOAD)):
+            raise AssertionError(f"CachedPartitionReader [{lo}, {hi}) "
+                                 "differs from the oracle")
+        reads.append({"range": [lo, hi], "rows": int(len(k)),
+                      "local_bytes": reader.metrics.local_bytes})
+    del per_partition, want_parts, want
+
+    # 7. the on-ramp: every committed output's bytes to the card
+    chunks = [executors[m // 2].resolver.local_blocks(
+        handle.shuffle_id, m, 0, MS_PARTITIONS) for m in range(MS_MAPS)]
+    staged = sum(len(c) for c in chunks)
+    ramp = {}
+    for attempt in ("first", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_keys, dev_payload = read_to_device(chunks, MS_PAYLOAD)
+        ramp[f"{attempt}_s"] = time.perf_counter() - t0
+        ramp[f"{attempt}_gb_per_s"] = staged / ramp[f"{attempt}_s"] / 1e9
+        if attempt == "first":
+            del dev_keys, dev_payload
+    if not (dev_keys.is_cuda and dev_payload.is_cuda):
+        raise AssertionError("read_to_device did not stage on the card")
+    host_keys = dev_keys.cpu().numpy()
+    host_payload = dev_payload.cpu().numpy()
+    del dev_keys, dev_payload
+    at = 0
+    for chunk in chunks:
+        rows = np.frombuffer(chunk, np.uint8).reshape(-1, 8 + MS_PAYLOAD)
+        n = len(rows)
+        if not (np.array_equal(host_keys[at:at + n].view(np.uint8),
+                               rows[:, :8])
+                and np.array_equal(host_payload[at:at + n], rows[:, 8:])):
+            raise AssertionError("read_to_device bytes differ from the "
+                                 "committed outputs")
+        at += n
+    if at != MS_ROWS:
+        raise AssertionError(f"read_to_device staged {at} rows")
+    ramp.update({"bytes": staged, "rows": at, "exact": True})
+    emit({"phase": "mesh_service", "rows": MS_ROWS,
+          "record_bytes": 8 + MS_PAYLOAD,
+          "staged_bytes": MS_ROWS * (8 + MS_PAYLOAD),
+          "device_row_bytes": 4 * mesh_service.device_row_words(MS_PAYLOAD),
+          "maps": MS_MAPS, "map_rows": MS_MAP_ROWS,
+          "executors": MS_EXECUTORS, "partitions": MS_PARTITIONS,
+          "partitioner": "hash", "out_factor": MS_OUT_FACTOR,
+          "rows_per_round": MS_ROWS_PER_ROUND, "hbm_budget": FUSED_BUDGET,
+          "distinct_keys": distinct, "runs": runs,
+          "all_exact": True, "cached_reads": reads, "read_to_device": ramp,
+          "generate_s": generate_s, "commit_s": commit_s,
+          "distinct_s": distinct_s, "oracle_s": oracle_s})
+    return launches
+
+
 def phase_small_runs(mesh: VirtualMesh) -> None:
     """Small runs of every workload on the card against the numpy
     oracles: integers exact, floats at the tests' tolerances."""
@@ -1067,6 +1337,7 @@ def main() -> None:
     launches["hierarchical"] = phase_hierarchical(mesh, row, rows, dest,
                                                   flat)
     del rows, dest, flat
+    launches.update(phase_mesh_service(mesh, row))
     phase_small_runs(mesh)
     row["launches"] = sum(launches.values())
     row["launches_by_path"] = launches

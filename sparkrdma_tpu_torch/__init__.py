@@ -13,8 +13,11 @@ Subpackages
 ``utils``     unsigned 32-bit word helpers and the numpy <-> mesh carry.
 ``parallel``  the virtual mesh, the ragged exchange and the fused step.
 ``ops``       partitioners and the ring all-to-all kernel.
-``shuffle``   positional merges of sorted runs.
-``models``    TeraSort.
+``shuffle``   the mesh shuffle service (committed map outputs reduced on
+              the mesh), the host-to-device on-ramp, an in-memory
+              store of committed outputs, positional merges of sorted
+              runs, and the few host-plane names these need.
+``models``    TeraSort, ALS, PageRank, the join, the TPC-DS star, q95, q64.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no CPU request it raises.

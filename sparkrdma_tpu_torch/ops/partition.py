@@ -59,3 +59,25 @@ def uniform_splitters(num_partitions: int, device=None) -> torch.Tensor:
     edges = [(i * span) // num_partitions for i in range(1, num_partitions)]
     return torch.tensor(edges, dtype=torch.int64,
                         device=resolve_device(device))
+
+
+def partition_and_count(keys: torch.Tensor, splitters: torch.Tensor,
+                        num_partitions: int):
+    """Destination ids + per-partition histogram in one pass: the
+    ``range_partition`` destinations and an int32 count of each id in
+    ``[0, num_partitions)`` along the last axis (``[..., num_partitions]``;
+    a 1-D ``keys`` gives the JAX function's ``[num_partitions]``).
+
+    ``jnp.bincount(length=n)`` drops ids ``>= n`` (a key past every
+    splitter when there are ``n`` or more of them), where
+    ``torch.bincount(minlength=n)`` would grow; the counts here come from
+    the sorted ids, one binary search per partition bound, so ids past
+    the last bound are left out as JAX leaves them out, with no host
+    sync and no atomics."""
+    dest = range_partition(keys, splitters)
+    sorted_dest, _ = torch.sort(dest.to(torch.int64), dim=-1)
+    bounds = torch.arange(num_partitions + 1, device=dest.device)
+    edges = torch.searchsorted(
+        sorted_dest,
+        bounds.expand(dest.shape[:-1] + (num_partitions + 1,)).contiguous())
+    return dest, torch.diff(edges, dim=-1).to(torch.int32)

@@ -317,3 +317,75 @@ def test_round_drivers_on_card(cuda):
             np.testing.assert_array_equal(piped[d], other[d])
         keys = piped[d][:, :2].copy().view(np.uint64).reshape(-1)
         assert (keys % 8 == d).all() and (keys[:-1] <= keys[1:]).all()
+
+
+def _committed_stage(maps=3, rows=4000, width=92, partitions=200):
+    """Executor stores holding ``maps`` committed outputs of random
+    records, hash-partitioned; returns (executors, handle)."""
+    from sparkrdma_tpu_torch.shuffle.local_store import LocalExecutor
+    from sparkrdma_tpu_torch.shuffle.manager import (
+        PartitionerSpec,
+        ShuffleHandle,
+    )
+
+    handle = ShuffleHandle(1, maps, partitions, width,
+                           PartitionerSpec("hash"))
+    partitioner = handle.partitioner.build(partitions)
+    rng = np.random.default_rng(21)
+    executors = [LocalExecutor(), LocalExecutor()]
+    for m in range(maps):
+        keys = rng.integers(0, 2**64, rows, dtype=np.uint64)
+        payload = rng.integers(0, 256, (rows, width), dtype=np.uint8)
+        executors[m % 2].resolver.commit(1, m, keys, payload, partitioner,
+                                         partitions)
+    return executors, handle
+
+
+def test_read_to_device_on_card(cuda):
+    """The on-ramp stages through a pinned buffer onto the card, byte-equal
+    after download, and its result stands when the caller reuses or frees
+    the chunks right after return."""
+    from sparkrdma_tpu_torch.shuffle import reader as treader
+    from sparkrdma_tpu_torch.shuffle.writer import decode_rows
+
+    executors, handle = _committed_stage()
+    width = handle.row_payload_bytes
+    chunks = [bytearray(executors[m % 2].resolver.local_blocks(
+        1, m, 0, handle.num_partitions)) for m in range(handle.num_maps)]
+    want_keys, want_payload = decode_rows(b"".join(chunks), width)
+    assert treader._gather(chunks, 8 + width, pin=True).is_pinned()
+    keys, payload = treader.read_to_device(chunks, width)
+    for chunk in chunks:          # the caller reuses its buffers at once
+        chunk[:] = bytes(len(chunk))
+    del chunks
+    assert keys.is_cuda and payload.is_cuda
+    assert keys.dtype == torch.int32 and keys.shape == (len(want_keys), 2)
+    np.testing.assert_array_equal(
+        keys.cpu().numpy().view(np.uint32).copy().view(np.uint64)
+        .reshape(-1), want_keys)
+    np.testing.assert_array_equal(payload.cpu().numpy(), want_payload)
+    empty_keys, empty_payload = treader.read_to_device([], width)
+    assert empty_keys.is_cuda and empty_keys.shape == (0, 2)
+    assert empty_payload.shape == (0, width)
+
+
+@pytest.mark.parametrize("rows_per_round", [0, 1000])
+def test_mesh_reduce_fused_on_card_matches_cpu(cuda, rows_per_round):
+    """The fused mesh reduce on the card (the ring kernel once per round)
+    equals the same call on the CPU, byte for byte."""
+    from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+    from sparkrdma_tpu_torch.shuffle import mesh_service as tms
+
+    executors, handle = _committed_stage()
+    before = tre.LAUNCHES
+    got = tms.run_mesh_reduce_fused(executors, handle, VirtualMesh(8, cuda),
+                                    rows_per_round=rows_per_round,
+                                    expect_maps=handle.num_maps)
+    assert tre.LAUNCHES - before == (2 if rows_per_round else 1)
+    want = tms.run_mesh_reduce_fused(executors, handle,
+                                     VirtualMesh(8, "cpu"), impl="ring",
+                                     rows_per_round=rows_per_round)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+    assert sum(len(k) for k, _, _ in got) == 3 * 4000

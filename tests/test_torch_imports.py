@@ -38,7 +38,11 @@ def test_port_has_sources():
                  "models/als.py", "models/pagerank.py", "models/join.py",
                  "models/tpcds.py", "models/tpcds_queries.py",
                  "ops/sort.py", "ops/aggregate.py", "parallel/topology.py",
-                 "utils/trace.py"):
+                 "utils/trace.py", "shuffle/mesh_service.py",
+                 "shuffle/reader.py", "shuffle/local_store.py",
+                 "shuffle/writer.py", "shuffle/fetcher.py",
+                 "shuffle/planner.py", "shuffle/manager.py",
+                 "utils/integrity.py"):
         assert must in names
     assert (PORT / "csrc" / "ring_exchange.cu").exists()
 

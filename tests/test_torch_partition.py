@@ -92,3 +92,34 @@ def test_uniform_splitters_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tp.uniform_splitters(8)
+
+
+@pytest.mark.parametrize("num_splitters,num_partitions", [
+    (7, 8),     # the JAX callers' case: one more partition than splitters
+    (0, 1),
+    (12, 4),    # ids past num_partitions: jnp.bincount drops them
+    (4, 4)])    # keys past the last splitter get id 4, which is dropped
+def test_partition_and_count(num_splitters, num_partitions):
+    keys = _edge_keys()
+    sample = np.random.default_rng(num_splitters).integers(
+        0, 2**32, size=256, dtype=np.uint32)
+    splitters = np.sort(sample)[:num_splitters]
+    want_dest, want_counts = jp.partition_and_count(
+        jnp.asarray(keys), jnp.asarray(splitters), num_partitions)
+    dest, counts = tp.partition_and_count(_bits(keys), _bits(splitters),
+                                          num_partitions)
+    assert counts.dtype == torch.int32
+    assert counts.shape == (num_partitions,)
+    np.testing.assert_array_equal(dest.numpy(), np.asarray(want_dest))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want_counts))
+    if num_splitters >= num_partitions:
+        assert int(counts.sum()) < len(keys)   # some ids were dropped
+    # a [D, N] batch counts per shard, each row as the JAX function
+    batch = keys[:8 * 512].reshape(8, 512)
+    _, batched = tp.partition_and_count(_bits(batch), _bits(splitters),
+                                        num_partitions)
+    for d in range(8):
+        np.testing.assert_array_equal(
+            batched[d].numpy(), np.asarray(jp.partition_and_count(
+                jnp.asarray(batch[d]), jnp.asarray(splitters),
+                num_partitions)[1]))
