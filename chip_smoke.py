@@ -43,9 +43,11 @@ printing one JSON line; any failure raises and the exit code is not 0:
    ``run_hierarchical_exchange`` over two slices of 4 shards, byte-equal
    to the flat driver, with its cross-slice bytes;
 9. the mesh shuffle service (``shuffle/mesh_service.py``) over an engine
-   shuffle stage: 1 GiB of 100-byte records committed as 8 map outputs
-   of 128 MiB into 4 in-memory executor stores (``shuffle/local_store``;
-   map 0 on two of them), hash-partitioned into 200 reduce partitions,
+   shuffle stage: 1 GiB of 100-byte records written as 8 map outputs of
+   128 MiB through the writers of 4 executors on localhost (a
+   ``SparkCompatShuffleManager`` driver and executors, spill files under
+   one temporary directory; map 0 on two of them), hash-partitioned into
+   200 reduce partitions,
    reduced on the card by the fused driver in budget-sized rounds (the
    headline: wall time, GB/s, the host's time per part from the tracer,
    one more run traced), the fused driver in one shot, the one-shot
@@ -55,22 +57,48 @@ printing one JSON line; any failure raises and the exit code is not 0:
    hierarchical run), then ``split_by_partition`` and
    ``CachedPartitionReader`` over run 1's result, and ``read_to_device``
    of the 8 committed outputs (1 GiB) with its GB/s;
-10. small runs of every workload against their numpy oracles;
-11. the kernel table line, then the device line last.
+10. engine: the same records as a real engine job (``DAGEngine`` over a
+    ``SparkCompatShuffleManager`` driver and 4 executors on localhost,
+    ``mesh=VirtualMesh(8)``, the default cost model and budget): 8 map
+    tasks write their 128 MiB through the writer into spill files, 200
+    result tasks read their partitions off the device plane; it must pick
+    the device plane, degrade nothing, read no remote byte, tick one
+    exchange per round and return every partition byte-equal to the
+    oracle, with the native shim loaded. Prints the map stage's, the
+    reduce's and the job's walls, the reduce's GB/s and host time per
+    span, and a traced second run's device time and idle share; then
+    TPC-DS q95 as an engine job (``build_q95_job`` at SF10's web_sales
+    rows) through the same engine, against ``numpy_q95``, every shuffle
+    on the device plane with no degrade;
+11. small runs of every workload against their numpy oracles, and small
+    engine jobs under the mesh engine: the star and q64 plans (4
+    partitions, so a round's source shard sends to one or two
+    destinations and the ring's slots grow to the largest pair), the
+    README's ``EngineContext`` word count and ``BatchRDD.sort_by_key``
+    over 2**20 rows, each on the device plane with no degrade; and a
+    skewed stage whose receive overflows and degrades to the host plane,
+    still exact;
+12. the kernel table line, then the device line last.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import itertools
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 import zlib
 
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.config import TpuShuffleConf
+from sparkrdma_tpu_torch.engine import DAGEngine, MapStage, ResultStage
 from sparkrdma_tpu_torch.models import (
     als,
     join,
@@ -92,7 +120,7 @@ from sparkrdma_tpu_torch.parallel.exchange import (
     bucket_quota,
     chunked_exchange,
 )
-from sparkrdma_tpu_torch.parallel import topology
+from sparkrdma_tpu_torch.parallel import exchange, topology
 from sparkrdma_tpu_torch.parallel.device_plane import (
     auto_rows_per_round,
     run_fused_exchange,
@@ -100,10 +128,15 @@ from sparkrdma_tpu_torch.parallel.device_plane import (
     stage_to_device,
 )
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+from sparkrdma_tpu_torch.rdd import EngineContext
+from sparkrdma_tpu_torch.runtime import native
 from sparkrdma_tpu_torch.shuffle import mesh_service
-from sparkrdma_tpu_torch.shuffle.local_store import LocalExecutor
-from sparkrdma_tpu_torch.shuffle.manager import PartitionerSpec, ShuffleHandle
+from sparkrdma_tpu_torch.shuffle.manager import PartitionerSpec
 from sparkrdma_tpu_torch.shuffle.reader import read_to_device
+from sparkrdma_tpu_torch.shuffle.spark_compat import (
+    ShuffleDependency,
+    SparkCompatShuffleManager,
+)
 from sparkrdma_tpu_torch.utils.trace import Tracer
 from sparkrdma_tpu_torch.utils.u32 import (
     rows_from_numpy,
@@ -180,11 +213,21 @@ MS_OUT_FACTOR = 2 * -(-SHARDS // min(MS_PARTITIONS, SHARDS))
 MS_ROWS_PER_ROUND = auto_rows_per_round(
     4 * mesh_service.device_row_words(MS_PAYLOAD), FUSED_BUDGET,
     MS_OUT_FACTOR)
-MS_HANDLE = ShuffleHandle(shuffle_id=7, num_maps=MS_MAPS,
-                          num_partitions=MS_PARTITIONS,
-                          row_payload_bytes=MS_PAYLOAD,
-                          partitioner=PartitionerSpec("hash"))
+MS_SHUFFLE_ID = 7
+MS_PARTITIONER = PartitionerSpec("hash")
 MS_READER_RANGES = ((0, 1), (17, 42), (199, 200), (0, MS_PARTITIONS))
+# the engine phase: the mesh-service stage's records as an engine job on 4
+# executors; q95 as an engine job at SF10's web_sales rows (8 x 899,696),
+# 8 map tasks per source, 200 shuffle partitions
+ENGINE_EXECUTORS = 4
+ENGINE_Q95_SCALE = SHARDS
+# the small engine jobs: the CPU tests' sizes
+SMALL_STAR_CFG = tpcds.TpcdsConfig(fact_rows_per_device=2048, dim1_size=150,
+                                   dim2_size=200, num_groups=48)
+SMALL_Q64_CFG = tpcds_queries.Q64Config(ss_rows_per_device=640,
+                                        cs_rows_per_device=512,
+                                        num_items=300, out_factor=4)
+SORT_ROWS = 1 << 20
 
 
 def emit(obj) -> None:
@@ -1008,34 +1051,64 @@ def phase_hierarchical(mesh: VirtualMesh, row: dict, rows: np.ndarray,
     return launches
 
 
-def _mesh_stage():
+@contextlib.contextmanager
+def _engine_cluster(executors: int = ENGINE_EXECUTORS):
+    """A ``SparkCompatShuffleManager`` driver and ``executors`` executors
+    of the port on localhost, each spilling under one temporary
+    directory; every manager is stopped on the way out."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_engine_") as tmp:
+        conf = TpuShuffleConf(connect_timeout_ms=5000)
+        driver = SparkCompatShuffleManager(conf, isDriver=True)
+        execs = []
+        try:
+            for i in range(executors):
+                execs.append(SparkCompatShuffleManager(
+                    conf, driverAddr=driver.driverAddr, executorId=str(i),
+                    spill_dir=os.path.join(tmp, f"e{i}")))
+            for ex in execs:
+                ex.native.executor.wait_for_members(executors)
+            yield driver, execs
+        finally:
+            for ex in execs:
+                ex.stop()
+            driver.stop()
+
+
+def _mesh_records():
     """The stage's records from seed 0 (uniform random u64 keys, random
-    payload bytes), committed as ``MS_MAPS`` map outputs, map ``m`` into
-    executor ``m // 2``'s store and map 0 again into executor 1's (a
-    speculative copy: staging must read it once). Returns (executors,
-    keys, payload, seconds to generate, seconds to commit)."""
+    payload bytes). Returns (keys, payload, seconds to generate)."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     keys = rng.integers(0, 2**64, MS_ROWS, dtype=np.uint64)
     payload = np.frombuffer(rng.bytes(MS_ROWS * MS_PAYLOAD),
                             np.uint8).reshape(MS_ROWS, MS_PAYLOAD)
-    generate_s = time.perf_counter() - t0
+    return keys, payload, time.perf_counter() - t0
+
+
+def _mesh_stage(driver, execs, keys: np.ndarray, payload: np.ndarray):
+    """Register the stage on ``driver`` and write ``MS_MAPS`` map outputs
+    through the executors' writers: map ``m`` on executor ``m // 2`` and
+    map 0 again on executor 1 (a speculative copy: staging must read it
+    once). Returns (the executors' managers, the handle, seconds to
+    commit)."""
     t0 = time.perf_counter()
-    partitioner = MS_HANDLE.partitioner.build(MS_PARTITIONS)
-    executors = [LocalExecutor() for _ in range(MS_EXECUTORS)]
+    managers = [ex.native for ex in execs]
+    handle = driver.native.register_shuffle(
+        MS_SHUFFLE_ID, MS_MAPS, MS_PARTITIONS, MS_PARTITIONER,
+        row_payload_bytes=MS_PAYLOAD)
     for m, e in [(m, m // 2) for m in range(MS_MAPS)] + [(0, 1)]:
         rows = slice(m * MS_MAP_ROWS, (m + 1) * MS_MAP_ROWS)
-        executors[e].resolver.commit(MS_HANDLE.shuffle_id, m, keys[rows],
-                                     payload[rows], partitioner,
-                                     MS_PARTITIONS)
-    return executors, keys, payload, generate_s, time.perf_counter() - t0
+        writer = managers[e].get_writer(handle, m)
+        writer.write_batch(keys[rows], payload[rows])
+        writer.close()
+    return managers, handle, time.perf_counter() - t0
 
 
 def _mesh_oracle(keys: np.ndarray, payload: np.ndarray) -> list:
     """Per shard, what every flat reduce must return: the rows whose
     partition ``p`` has ``p % D == d``, stably sorted by key, with their
     partition ids."""
-    parts = MS_HANDLE.partitioner.build(MS_PARTITIONS)(keys)
+    parts = MS_PARTITIONER.build(MS_PARTITIONS)(keys)
     shard = parts % SHARDS
     want = []
     for d in range(SHARDS):
@@ -1095,10 +1168,23 @@ def _mesh_run(name: str, row: dict, launches: dict, fn) -> tuple:
     return result, record
 
 
-def phase_mesh_service(mesh: VirtualMesh, row: dict) -> dict:
+def phase_mesh_service(mesh: VirtualMesh, row: dict, keys: np.ndarray,
+                       payload: np.ndarray, generate_s: float) -> tuple:
     """The mesh shuffle service over one engine shuffle stage (see the
-    module docstring, phase 9). Returns the kernel's launches per path."""
-    executors, keys, payload, generate_s, commit_s = _mesh_stage()
+    module docstring, phase 9): ``keys`` and ``payload`` written by
+    ``_mesh_stage`` on a cluster of their own. Returns the kernel's
+    launches per path and the per-shard oracle."""
+    with _engine_cluster(MS_EXECUTORS) as (driver, execs):
+        executors, handle, commit_s = _mesh_stage(driver, execs, keys,
+                                                  payload)
+        return _mesh_service_runs(mesh, row, executors, handle, keys,
+                                  payload, generate_s, commit_s)
+
+
+def _mesh_service_runs(mesh: VirtualMesh, row: dict, executors, handle,
+                       keys: np.ndarray, payload: np.ndarray,
+                       generate_s: float, commit_s: float) -> tuple:
+    """``phase_mesh_service``'s runs over the committed stage."""
     t0 = time.perf_counter()
     ordered = np.sort(keys)   # distinct keys by one sort, timed apart
     distinct = 1 + int(np.count_nonzero(ordered[1:] != ordered[:-1]))
@@ -1107,8 +1193,7 @@ def phase_mesh_service(mesh: VirtualMesh, row: dict) -> dict:
     t0 = time.perf_counter()
     want = _mesh_oracle(keys, payload)
     oracle_s = time.perf_counter() - t0
-    del keys, payload
-    handle, launches, runs = MS_HANDLE, {}, {}
+    launches, runs = {}, {}
     kw = dict(out_factor=MS_OUT_FACTOR, expect_maps=MS_MAPS)
 
     # 1. the headline: the fused driver in budget-sized rounds
@@ -1192,7 +1277,7 @@ def phase_mesh_service(mesh: VirtualMesh, row: dict) -> dict:
                                  "differs from the oracle")
         reads.append({"range": [lo, hi], "rows": int(len(k)),
                       "local_bytes": reader.metrics.local_bytes})
-    del per_partition, want_parts, want
+    del per_partition, want_parts
 
     # 7. the on-ramp: every committed output's bytes to the card
     chunks = [executors[m // 2].resolver.local_blocks(
@@ -1237,7 +1322,283 @@ def phase_mesh_service(mesh: VirtualMesh, row: dict) -> dict:
           "all_exact": True, "cached_reads": reads, "read_to_device": ramp,
           "generate_s": generate_s, "commit_s": commit_s,
           "distinct_s": distinct_s, "oracle_s": oracle_s})
+    return launches, want
+
+
+def _mesh_engine(driver, execs, mesh: VirtualMesh, **kw) -> DAGEngine:
+    """A mesh-mode engine with a live tracer of its own."""
+    engine = DAGEngine(driver, execs, mesh=mesh, **kw)
+    engine.tracer = Tracer()
+    return engine
+
+
+def _planes(engine: DAGEngine) -> dict:
+    """What the engine's job chose and suffered: planes by shuffle, the
+    degrades with their reasons, the rounds its reduces ran and the slot
+    rows of each round's ring pairs."""
+    return {"planes": [e["args"]["plane"]
+                       for e in engine.tracer.events("exchange.select")],
+            "degrades": [e["args"]["reason"]
+                         for e in engine.tracer.events("exchange.degrade")],
+            "rounds": len(engine.tracer.events("exchange.round")),
+            "slot_rows": [e["args"]["slot_rows"]
+                          for e in engine.tracer.events("exchange.round")]}
+
+
+def _on_device(name: str, chosen: dict) -> None:
+    """Fail unless every shuffle of the job rode the device plane and none
+    degraded to the host plane."""
+    if (not chosen["planes"] or set(chosen["planes"]) != {"device"}
+            or chosen["degrades"]):
+        raise AssertionError(f"{name}: a shuffle left the device plane: "
+                             f"planes {chosen['planes']}, degrades "
+                             f"{chosen['degrades']}")
+
+
+def _engine_stage(keys: np.ndarray, payload: np.ndarray, reads: list):
+    """The mesh-service stage as an engine job: map task ``m`` writes
+    records ``[m * MS_MAP_ROWS, (m + 1) * MS_MAP_ROWS)`` through the
+    writer; result task ``p`` drains partition ``p`` and returns ``(keys,
+    payload, remote bytes)``, appending its read's start and end to
+    ``reads``."""
+    def map_fn(ctx, writer, task_id):
+        rows = slice(task_id * MS_MAP_ROWS, (task_id + 1) * MS_MAP_ROWS)
+        writer.write((keys[rows], payload[rows]))
+
+    def reduce_fn(ctx, task_id):
+        t0 = time.perf_counter()
+        reader = ctx.read(0)
+        got = list(reader.readBatches())
+        out = (np.concatenate([k for k, _ in got]) if got
+               else np.zeros(0, np.uint64),
+               np.concatenate([p for _, p in got]) if got
+               else np.zeros((0, MS_PAYLOAD), np.uint8),
+               reader.metrics.remote_bytes)
+        reads.append((t0, time.perf_counter()))
+        return out
+
+    stage = MapStage(MS_MAPS, ShuffleDependency(
+        MS_PARTITIONS, PartitionerSpec("hash"),
+        row_payload_bytes=MS_PAYLOAD), map_fn)
+    return ResultStage(MS_PARTITIONS, reduce_fn, parents=[stage])
+
+
+def phase_engine(mesh: VirtualMesh, row: dict, keys: np.ndarray,
+                 payload: np.ndarray, want: list) -> dict:
+    """The mesh-service stage as a real engine job (see the module
+    docstring, phase 10). Returns the kernel's launches per path."""
+    if native.LIB is None:
+        raise AssertionError(f"the native shim did not load from "
+                             f"{native._LIB_PATH}")
+    t0 = time.perf_counter()   # the engine's reduce splits the same way
+    want_parts = mesh_service.split_by_partition(want, MS_PARTITIONS,
+                                                 MS_PAYLOAD)
+    split_s = time.perf_counter() - t0
+    launches = {}
+    with _engine_cluster() as (driver, execs):
+        engine = _mesh_engine(driver, execs, mesh)
+        reads = []
+        before = exchange.DATA_PLANE["exchanges"]
+        t0 = time.perf_counter()
+        out, launches["engine"], shapes = _launches(
+            "engine", lambda: engine.run(_engine_stage(keys, payload,
+                                                       reads)))
+        job_s = time.perf_counter() - t0
+        exchanges = exchange.DATA_PLANE["exchanges"] - before
+        chosen = _planes(engine)
+        stages = {("map" if "shuffle" in e["args"] else "result"):
+                  e["dur"] / 1e6
+                  for e in engine.tracer.events("engine.stage")}
+        reduce_s = (max(end for _, end in reads)
+                    - min(start for start, _ in reads))
+        host_ms = _mesh_host_ms(engine.tracer, reduce_s)
+        host_ms["dispatch_ms_by_round"] = [
+            (r["dur"] - st["dur"]) / 1e3 for r, st in zip(
+                engine.tracer.events("exchange.round"),
+                engine.tracer.events("exchange.stage"))]
+        host_ms["split_by_partition_ms"] = split_s * 1e3
+        if chosen["planes"] != ["device"] or chosen["degrades"]:
+            raise AssertionError(f"engine: the stage did not stay on the "
+                                 f"device plane: {chosen}")
+        if exchanges != chosen["rounds"] or not exchanges:
+            raise AssertionError(f"engine: {exchanges} exchanges for "
+                                 f"{chosen['rounds']} rounds")
+        for p, ((k, v, remote), (wk, wv)) in enumerate(zip(out,
+                                                           want_parts)):
+            if remote:
+                raise AssertionError(f"engine: partition {p} read "
+                                     f"{remote} remote bytes")
+            if not (np.array_equal(k, wk) and np.array_equal(v, wv)):
+                raise AssertionError(f"engine: partition {p} differs from "
+                                     "the oracle")
+        rows = sum(len(k) for k, _, _ in out)
+        del out
+        # a second run of the same job, traced, its tasks one at a time
+        # on this thread (the profiler records this thread's spans): the
+        # reduce's device time and idle share
+        reads.clear()
+        traced_engine = _mesh_engine(driver, execs, mesh,
+                                     max_parallel_tasks=1)
+        traced = _trace(lambda: traced_engine.run(
+            _engine_stage(keys, payload, reads)), ("exchange.", "fused."))
+        traced_reduce_s = (max(end for _, end in reads)
+                           - min(start for start, _ in reads))
+        traced["reduce_wall_ms"] = traced_reduce_s * 1e3
+        traced["reduce_idle_share"] = (1 - traced["device_busy_ms"]
+                                       / traced["reduce_wall_ms"])
+        traced.update(_planes(traced_engine))
+        traced["max_parallel_tasks"] = 1
+        traced["host_ms"] = _mesh_host_ms(traced_engine.tracer,
+                                          traced_reduce_s)
+    staged = MS_ROWS * (8 + MS_PAYLOAD)
+    emit({"phase": "engine", "executors": ENGINE_EXECUTORS,
+          "maps": MS_MAPS, "partitions": MS_PARTITIONS, "rows": rows,
+          "record_bytes": 8 + MS_PAYLOAD, "native_shim": True,
+          "shim": os.path.basename(native._LIB_PATH),
+          **chosen, "exchanges": exchanges,
+          "map_stage_s": stages.get("map"),
+          "result_stage_s": stages.get("result"), "reduce_s": reduce_s,
+          "reduce_gb_per_s": staged / reduce_s / 1e9, "job_s": job_s,
+          "job_gb_per_s": staged / job_s / 1e9, "host_ms": host_ms,
+          "ring_launches": launches["engine"],
+          "ring_shapes": _check_path_shapes(row, "engine", shapes),
+          "remote_bytes": 0, "all_exact": True})
+    emit({"phase": "engine_profile", **traced})
     return launches
+
+
+def phase_engine_q95(mesh: VirtualMesh, row: dict) -> dict:
+    """TPC-DS q95 as an engine job (``build_q95_job``: five sources, three
+    dimension joins, the by-order result stage) over SF10's web_sales
+    rows through the mesh engine, against ``numpy_q95``."""
+    cfg = Q95_CFG
+    launches = {}
+    with _engine_cluster() as (driver, execs):
+        engine = _mesh_engine(driver, execs, mesh)
+        t0 = time.perf_counter()
+        job, finish = tpcds_queries.build_q95_job(
+            cfg, num_maps=MS_MAPS, num_partitions=MS_PARTITIONS, seed=0,
+            data_scale=ENGINE_Q95_SCALE)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results, launches["engine_q95"], shapes = _launches(
+            "engine_q95", lambda: engine.run(job))
+        job_s = time.perf_counter() - t0
+        got = finish(results)
+        chosen = _planes(engine)
+    _on_device("engine q95", chosen)
+    t0 = time.perf_counter()
+    want = tpcds_queries.numpy_q95(*tpcds_queries.generate_q95(
+        cfg, ENGINE_Q95_SCALE, seed=0), cfg)
+    oracle_s = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError(f"engine q95 {got} != numpy_q95 {want}")
+    emit({"phase": "engine_q95", "data_scale": ENGINE_Q95_SCALE,
+          "ws_rows": ENGINE_Q95_SCALE * cfg.ws_rows_per_device,
+          "maps": MS_MAPS, "partitions": MS_PARTITIONS,
+          "result": list(got), "exact": True, "build_s": build_s,
+          "job_s": job_s, "oracle_s": oracle_s,
+          "plane_counts": dict(collections.Counter(chosen["planes"])),
+          "degrades": chosen["degrades"], "rounds": chosen["rounds"],
+          "slot_rows": chosen["slot_rows"],
+          "ring_launches": launches["engine_q95"],
+          "ring_shapes": _check_path_shapes(row, "engine_q95", shapes)})
+    return launches
+
+
+def _small_engine_runs(mesh: VirtualMesh) -> dict:
+    """Small engine jobs under the mesh engine, each against its truth:
+    the star and q64 plans at the CPU tests' sizes, the README's word
+    count, ``BatchRDD.sort_by_key`` over ``SORT_ROWS`` rows, each on the
+    device plane with no degrade, and a skewed stage whose receive
+    overflows (degraded to the host plane)."""
+    record = {}
+    with _engine_cluster() as (driver, execs):
+        job, finish = tpcds.build_tpcds_job(SMALL_STAR_CFG, num_maps=3,
+                                            num_partitions=4, seed=5)
+        engine = _mesh_engine(driver, execs, mesh)
+        for got, want in zip(finish(engine.run(job)), tpcds.numpy_tpcds(
+                *tpcds.generate_star(SMALL_STAR_CFG, 1, seed=5),
+                SMALL_STAR_CFG.num_groups)):
+            np.testing.assert_array_equal(got, want)
+        record["star"] = _planes(engine)
+        _on_device("small star engine job", record["star"])
+
+        job, finish = tpcds_queries.build_q64_job(
+            SMALL_Q64_CFG, num_maps=3, num_partitions=4, seed=13,
+            data_scale=SHARDS)
+        engine = _mesh_engine(driver, execs, mesh)
+        got = finish(engine.run(job))
+        if got != tpcds_queries.numpy_q64(*tpcds_queries.generate_q64(
+                SMALL_Q64_CFG, SHARDS, seed=13), SMALL_Q64_CFG):
+            raise AssertionError(f"small q64 engine job: {got}")
+        record["q64"] = {**_planes(engine), "result": list(got)}
+        _on_device("small q64 engine job", record["q64"])
+
+        rng = np.random.default_rng(17)
+        words = [f"w{int(i)}" for i in rng.zipf(1.5, 20_000) % 500]
+        engine = _mesh_engine(driver, execs, mesh)
+        counts = dict(EngineContext(engine).parallelize(words, 8)
+                      .map(lambda w: (w, 1))
+                      .reduceByKey(lambda a, b: a + b).collect())
+        if counts != dict(collections.Counter(words)):
+            raise AssertionError("word count differs from its truth")
+        record["word_count"] = {**_planes(engine), "words": len(words),
+                                "distinct": len(counts)}
+        _on_device("word count", record["word_count"])
+
+        keys = rng.integers(0, 2**64, SORT_ROWS, dtype=np.uint64)
+        payload = rng.integers(0, 256, (SORT_ROWS, 8), dtype=np.uint8)
+        parts = [(keys[i::8], payload[i::8]) for i in range(8)]
+        engine = _mesh_engine(driver, execs, mesh)
+        out = EngineContext(engine).batches(parts).sort_by_key(
+            16).collect_batches()
+        order = np.argsort(keys, kind="stable")
+        if not (np.array_equal(np.concatenate([k for k, _ in out]),
+                               keys[order])
+                and np.array_equal(np.concatenate([p for _, p in out]),
+                                   payload[order])):
+            raise AssertionError("sort_by_key differs from a numpy sort")
+        record["sort_by_key"] = {**_planes(engine), "rows": SORT_ROWS}
+        _on_device("sort_by_key", record["sort_by_key"])
+
+        # every key in partition 0 of 4: shard 0 receives all rows, past
+        # the engine's receive headroom
+        skew_p, skew_maps, skew_rows = 4, 4, 5000
+
+        def skew_table(m):
+            r = np.random.default_rng(300 + m)
+            return (r.integers(0, 1000, skew_rows).astype(np.uint64)
+                    * skew_p,
+                    r.integers(0, 256, (skew_rows, 4), dtype=np.uint8))
+
+        def skew_map(ctx, writer, task_id):
+            writer.write(skew_table(task_id))
+
+        def skew_reduce(ctx, task_id):
+            return ctx.read(0)._r.read_all()
+
+        engine = _mesh_engine(driver, execs, mesh)
+        out = engine.run(ResultStage(skew_p, skew_reduce, parents=[
+            MapStage(skew_maps, ShuffleDependency(
+                skew_p, PartitionerSpec("modulo"), row_payload_bytes=4),
+                skew_map)]))
+        skew = _planes(engine)
+        if skew["degrades"] != ["overflow"]:
+            raise AssertionError(f"skewed stage did not degrade: {skew}")
+        k_all, p_all = (np.concatenate(c) for c in zip(
+            *(skew_table(m) for m in range(skew_maps))))
+        got_k, got_p = out[0]
+
+        def canon(k, v):
+            rows = np.concatenate([k.view(np.uint8).reshape(-1, 8), v], 1)
+            return rows[np.lexsort(rows.T[::-1])]
+
+        if not (np.array_equal(canon(got_k, got_p), canon(k_all, p_all))
+                and all(len(k) == 0 for k, _ in out[1:])):
+            raise AssertionError("degraded stage differs from its truth")
+        record["overflow_degrade"] = {**skew, "rows": int(len(got_k))}
+    return record
 
 
 def phase_small_runs(mesh: VirtualMesh) -> None:
@@ -1313,9 +1674,10 @@ def phase_small_runs(mesh: VirtualMesh) -> None:
         if run(mesh, cfg, tables=tables) != oracle(*tables, cfg):
             raise AssertionError(f"small {run.__name__} disagrees with "
                                  "its oracle")
+    engine_jobs = _small_engine_runs(mesh)
     emit({"phase": "small_runs", "chunked_rounds": rounds,
           "als_rounds": als_rounds, "als_rmse": history,
-          "all_match_oracles": True})
+          "engine_jobs": engine_jobs, "all_match_oracles": True})
 
 
 def main() -> None:
@@ -1337,7 +1699,13 @@ def main() -> None:
     launches["hierarchical"] = phase_hierarchical(mesh, row, rows, dest,
                                                   flat)
     del rows, dest, flat
-    launches.update(phase_mesh_service(mesh, row))
+    keys, payload, generate_s = _mesh_records()
+    mesh_launches, want = phase_mesh_service(mesh, row, keys, payload,
+                                             generate_s)
+    launches.update(mesh_launches)
+    launches.update(phase_engine(mesh, row, keys, payload, want))
+    del keys, payload, want
+    launches.update(phase_engine_q95(mesh, row))
     phase_small_runs(mesh)
     row["launches"] = sum(launches.values())
     row["launches_by_path"] = launches

@@ -15,8 +15,12 @@ joins done as sorted lookups (validity masks carry selectivity).
 Arithmetic is the JAX package's u32 arithmetic: int64 values masked to
 32 bits (``utils.u32``). Per-group sums are int32 there and wrap; the
 port sums in int64 and wraps the result to int32, which is the same
-modulo 2**32. The DAG-engine form of the plan (``build_tpcds_job``) is
-not ported yet.
+modulo 2**32.
+
+The same logical plan is also a DAG-engine job (``build_tpcds_job``):
+source stages for the three tables, two join MapStages, one aggregating
+ResultStage, in numpy on the host; with ``DAGEngine(mesh=...)`` its five
+shuffles ride the device plane. Both forms answer to ``numpy_tpcds``.
 """
 
 from __future__ import annotations
@@ -238,3 +242,117 @@ def numpy_tpcds(fact: np.ndarray, dim1: np.ndarray, dim2: np.ndarray,
     sums = np.bincount(group, weights=value[live],
                        minlength=num_groups).astype(np.int64)
     return counts, sums
+
+
+# -- the same plan through the DAG engine (drop-in SPI path) --------------
+
+def build_tpcds_job(cfg: TpcdsConfig, num_maps: int, num_partitions: int,
+                    seed: int = 0):
+    """The star query as a stage DAG for ``engine.DAGEngine.run``.
+
+    Returns ``(result_stage, finish)`` where ``finish(results)`` folds the
+    per-partition dicts into global ``(counts[G], sums[G])``. Stage graph:
+    three sources (fact/dim1/dim2, modulo-partitioned on their join key),
+    join-1 (reads fact+dim1, writes by key2), join-2 (reads join-1+dim2,
+    writes by group), aggregate ResultStage — five shuffles, the SPI
+    sequence a TPC-DS stage graph drives through Spark.
+    """
+    from sparkrdma_tpu_torch.engine import MapStage, ResultStage
+    from sparkrdma_tpu_torch.shuffle.manager import PartitionerSpec
+    from sparkrdma_tpu_torch.shuffle.spark_compat import ShuffleDependency
+
+    G = cfg.num_groups
+    fact_all, dim1_all, dim2_all = generate_star(cfg, 1, seed)
+
+    def dep(payload_bytes):
+        return ShuffleDependency(num_partitions, PartitionerSpec("modulo"),
+                                 row_payload_bytes=payload_bytes)
+
+    def rows_of(table, task):  # deterministic striping across map tasks
+        return table[task::num_maps]
+
+    def src(table, key_col, payload_cols):
+        width = 4 * len(payload_cols)
+
+        def fn(ctx, writer, task):
+            rows = rows_of(table, task)
+            payload = np.ascontiguousarray(
+                rows[:, payload_cols], dtype="<u4").view(np.uint8)
+            writer.write((rows[:, key_col].astype(np.uint64),
+                          payload.reshape(len(rows), width)))
+        return fn
+
+    fact_st = MapStage(num_maps, dep(8), src(fact_all, 0, [1, 2]))
+    dim1_st = MapStage(num_maps, dep(4), src(dim1_all, 0, [1]))
+    dim2_st = MapStage(num_maps, dep(4), src(dim2_all, 0, [1]))
+
+    def read_u32(ctx, parent):  # -> (keys u64[N], cols u32[N, W])
+        ks, vs = [], []
+        for keys, payload in ctx.read(parent).readBatches():
+            ks.append(keys)
+            vs.append(np.ascontiguousarray(payload).view("<u4")
+                      .reshape(len(keys), -1))
+        if not ks:
+            return np.zeros(0, np.uint64), np.zeros((0, 1), np.uint32)
+        return np.concatenate(ks), np.concatenate(vs)
+
+    def np_lookup(dkeys, dattr, probes):
+        """Vectorized unique-key join: (attr[N] u32, found[N] bool)."""
+        if len(dkeys) == 0:
+            return (np.zeros(len(probes), np.uint32),
+                    np.zeros(len(probes), bool))
+        order = np.argsort(dkeys)
+        ks, at = dkeys[order], dattr[order]
+        idx = np.clip(np.searchsorted(ks, probes), 0, len(ks) - 1)
+        return at[idx].astype(np.uint32), ks[idx] == probes
+
+    def join1_fn(ctx, writer, task):
+        fkeys, fcols = read_u32(ctx, 0)   # key1 -> (key2, measure)
+        dkeys, dcols = read_u32(ctx, 1)   # key1 -> (attr1,)
+        attr, found = np_lookup(dkeys, dcols[:, 0], fkeys)
+        v1 = (fcols[:, 1].astype(np.uint32) * attr) % np.uint32(10007)
+        keep = found
+        payload = np.stack([fkeys.astype(np.uint32)[keep], v1[keep]],
+                           axis=1)  # (key1, value1)
+        writer.write((fcols[:, 0][keep].astype(np.uint64),
+                      np.ascontiguousarray(payload, "<u4").view(np.uint8)
+                      .reshape(int(keep.sum()), 8)))
+        del task
+
+    join1_st = MapStage(num_partitions, dep(8), join1_fn,
+                        parents=[fact_st, dim1_st])
+
+    def join2_fn(ctx, writer, task):
+        mkeys, mcols = read_u32(ctx, 0)   # key2 -> (key1, value1)
+        dkeys, dcols = read_u32(ctx, 1)   # key2 -> (attr2,)
+        attr, found = np_lookup(dkeys, dcols[:, 0], mkeys)
+        value = (mcols[:, 1].astype(np.uint32) + attr) % np.uint32(10007)
+        group = _mix_group(mcols[:, 0].astype(np.uint32),
+                           mkeys.astype(np.uint32), np.uint32(G))
+        keep = found
+        writer.write((group[keep].astype(np.uint64),
+                      np.ascontiguousarray(value[keep], "<u4")
+                      .view(np.uint8).reshape(int(keep.sum()), 4)))
+        del task
+
+    join2_st = MapStage(num_partitions, dep(4), join2_fn,
+                        parents=[join1_st, dim2_st])
+
+    def agg_fn(ctx, task):
+        counts = np.zeros(G, np.int64)
+        sums = np.zeros(G, np.int64)
+        for keys, payload in ctx.read(0).readBatches():
+            vals = np.ascontiguousarray(payload).view("<u4").ravel()
+            np.add.at(counts, keys.astype(np.int64), 1)
+            np.add.at(sums, keys.astype(np.int64), vals.astype(np.int64))
+        del task
+        return counts, sums
+
+    result = ResultStage(num_partitions, agg_fn, parents=[join2_st])
+
+    def finish(results):
+        counts = sum(c for c, _ in results)
+        sums = sum(s for _, s in results)
+        return counts, sums
+
+    return result, finish

@@ -39,8 +39,12 @@ of prefix sums at its ends, and q95's "more than one warehouse" (JAX:
 segment min != segment max) is a warehouse change inside an order's run
 once rows are sorted by (order, warehouse). No scatter is involved, so a
 hot key (q64's top item holds about a quarter of store sales) costs no
-more than a cold one. The engine-DAG variants (``build_q95_job``,
-``build_q64_job``) are not ported yet.
+more than a cold one.
+
+The engine-DAG variants (``build_q95_job``, ``build_q64_job``) express
+the same plans as stage DAGs of numpy tasks for ``engine.DAGEngine``;
+with ``mesh=`` their shuffles ride the device plane. Their joins use the
+host lookup ``_np_lookup`` the oracles use.
 """
 
 from __future__ import annotations
@@ -614,3 +618,241 @@ def pad_rows_to_devices(table: np.ndarray, n: int) -> np.ndarray:
         return table
     padding = np.full((rem, table.shape[1]), PAD, dtype=table.dtype)
     return np.concatenate([table, padding])
+
+
+# ===========================================================================
+# engine-DAG variants (the drop-in SPI path)
+# ===========================================================================
+
+
+def _engine_dep(num_partitions: int, width: int):
+    from sparkrdma_tpu_torch.shuffle.manager import PartitionerSpec
+    from sparkrdma_tpu_torch.shuffle.spark_compat import ShuffleDependency
+
+    return ShuffleDependency(num_partitions, PartitionerSpec("modulo"),
+                             row_payload_bytes=4 * width)
+
+
+def _engine_src(table: np.ndarray, keyfn, num_maps: int):
+    """Source-stage task fn: stripe ``table`` across map tasks, write
+    u32 rows keyed by ``keyfn(rows) -> u64``."""
+    width = table.shape[1] * 4
+
+    def fn(ctx, writer, task, _t=table, _w=width):
+        rows = _t[task::num_maps]
+        writer.write((keyfn(rows), np.ascontiguousarray(rows, "<u4")
+                      .view(np.uint8).reshape(len(rows), _w)))
+    return fn
+
+
+def _read_u32(ctx, parent: int, width: int):
+    """Drain one parent shuffle into (keys u64[N], cols u32[N, width])."""
+    ks, vs = [], []
+    for keys, payload in ctx.read(parent).readBatches():
+        ks.append(keys)
+        vs.append(np.ascontiguousarray(payload).view("<u4")
+                  .reshape(len(keys), -1))
+    if not ks:
+        return np.zeros(0, np.uint64), np.zeros((0, width), np.uint32)
+    return np.concatenate(ks), np.concatenate(vs)
+
+
+def build_q95_job(cfg: Q95Config, num_maps: int, num_partitions: int,
+                  seed: int = 0, data_scale: int = 1):
+    """q95 as a stage DAG for ``engine.DAGEngine.run``: five sources,
+    three dimension shuffle-join MapStages, a final by-order ResultStage
+    — seven shuffles through the SPI. Returns (result_stage, finish)."""
+    from sparkrdma_tpu_torch.engine import MapStage, ResultStage
+
+    ws, wr, date, addr, site = generate_q95(cfg, data_scale, seed)
+
+    def dep(width):
+        return _engine_dep(num_partitions, width)
+
+    def col(key_col):
+        return lambda rows, _k=key_col: rows[:, _k].astype(np.uint64)
+
+    # working rows carry an extra flags column (col 7)
+    ws8 = np.concatenate(
+        [ws, np.zeros((len(ws), 1), np.uint32)], axis=1)
+    ws_st = MapStage(num_maps, dep(8),
+                     _engine_src(ws8, col(2), num_maps))   # by ship_date
+    date_st = MapStage(num_maps, dep(2), _engine_src(date, col(0), num_maps))
+    addr_st = MapStage(num_maps, dep(2), _engine_src(addr, col(0), num_maps))
+    site_st = MapStage(num_maps, dep(2), _engine_src(site, col(0), num_maps))
+    wr_st = MapStage(num_maps, dep(1),
+                     _engine_src(wr, col(0), num_maps))    # by order
+
+    lo, hi = cfg.window_start, cfg.window_start + 60
+
+    def join_stage(key_col, next_key_col, flag_bit, pred):
+        def fn(ctx, writer, task, _k=key_col, _nk=next_key_col,
+               _b=flag_bit, _p=pred):
+            _, rows = _read_u32(ctx, 0, 8)
+            dkeys, dcols = _read_u32(ctx, 1, 2)
+            attr, found = _np_lookup(dkeys, dcols[:, 1],
+                                     rows[:, _k].astype(np.uint64))
+            ok = found & _p(attr)
+            rows = rows.copy()
+            rows[:, 7] |= np.where(ok, np.uint32(_b), np.uint32(0))
+            writer.write((rows[:, _nk].astype(np.uint64),
+                          np.ascontiguousarray(rows, "<u4").view(np.uint8)
+                          .reshape(len(rows), 32)))
+            del task
+        return fn
+
+    j1 = MapStage(num_partitions, dep(8),
+                  join_stage(2, 3, 1, lambda d: (d >= lo) & (d < hi)),
+                  parents=[ws_st, date_st])
+    j2 = MapStage(num_partitions, dep(8),
+                  join_stage(3, 4, 2, lambda s: s == cfg.target_state),
+                  parents=[j1, addr_st])
+    j3 = MapStage(num_partitions, dep(8),
+                  join_stage(4, 0, 4, lambda c: c == cfg.target_company),
+                  parents=[j2, site_st])
+
+    def final_fn(ctx, task):
+        _, rows = _read_u32(ctx, 0, 8)
+        wr_keys, _wr_rows = _read_u32(ctx, 1, 1)
+        returned = set(wr_keys.tolist())
+        wh_by_order: dict = {}
+        for o, w in zip(rows[:, 0].tolist(), rows[:, 1].tolist()):
+            wh_by_order.setdefault(o, set()).add(w)
+        multi = {o for o, s in wh_by_order.items() if len(s) > 1}
+        orders = set()
+        cost = profit = 0
+        for r in rows.tolist():
+            o = r[0]
+            if r[7] == 7 and o in multi and o in returned:
+                orders.add(o)
+                cost += r[5]
+                profit += r[6]
+        del task
+        return len(orders), cost, profit
+
+    result = ResultStage(num_partitions, final_fn, parents=[j3, wr_st])
+
+    def finish(results):
+        return (sum(r[0] for r in results), sum(r[1] for r in results),
+                sum(r[2] for r in results))
+
+    return result, finish
+
+
+def build_q64_job(cfg: Q64Config, num_maps: int, num_partitions: int,
+                  seed: int = 0, data_scale: int = 1):
+    """q64 as a stage DAG: five sources, catalog pair-join, catalog
+    group-by(item) -> cs_ui, store pair-join, date join, final by-item
+    ResultStage with the across-years CTE self-join — eight shuffles
+    through the SPI. Returns (result_stage, finish)."""
+    from sparkrdma_tpu_torch.engine import MapStage, ResultStage
+
+    ss, sr, cs, cr, date = generate_q64(cfg, data_scale, seed)
+
+    def dep(width):
+        return _engine_dep(num_partitions, width)
+
+    def pair_u64(rows):
+        return (rows[:, 0].astype(np.uint64) << _KEY_BITS) | \
+            rows[:, 1].astype(np.uint64)
+
+    def col0_u64(rows):
+        return rows[:, 0].astype(np.uint64)
+
+    cs_st = MapStage(num_maps, dep(3), _engine_src(cs, pair_u64, num_maps))
+    cr_st = MapStage(num_maps, dep(3), _engine_src(cr, pair_u64, num_maps))
+    ss_st = MapStage(num_maps, dep(4), _engine_src(ss, pair_u64, num_maps))
+    sr_st = MapStage(num_maps, dep(2), _engine_src(sr, pair_u64, num_maps))
+    date_st = MapStage(num_maps, dep(2),
+                       _engine_src(date, col0_u64, num_maps))
+
+    def cat_join_fn(ctx, writer, task):
+        cs_keys, cs_rows = _read_u32(ctx, 0, 3)
+        cr_keys, cr_rows = _read_u32(ctx, 1, 3)
+        refund_by_pair = dict(zip(cr_keys.tolist(),
+                                  cr_rows[:, 2].tolist()))
+        refunds = np.array([refund_by_pair.get(k, 0)
+                            for k in cs_keys.tolist()], np.uint32)
+        out = np.stack([cs_rows[:, 0], cs_rows[:, 2], refunds], axis=1)
+        writer.write((cs_rows[:, 0].astype(np.uint64),
+                      np.ascontiguousarray(out, "<u4").view(np.uint8)
+                      .reshape(len(out), 12)))
+        del task
+
+    cat_join = MapStage(num_partitions, dep(3), cat_join_fn,
+                        parents=[cs_st, cr_st])
+
+    def ui_fn(ctx, writer, task):
+        _, rows = _read_u32(ctx, 0, 3)
+        sale: dict = {}
+        refund: dict = {}
+        for i, p, r in rows.tolist():
+            sale[i] = sale.get(i, 0) + p
+            refund[i] = refund.get(i, 0) + r
+        ui = np.array([i for i in sale if sale[i] > 2 * refund[i]],
+                      np.uint32).reshape(-1, 1)
+        writer.write((ui[:, 0].astype(np.uint64),
+                      np.ascontiguousarray(ui, "<u4").view(np.uint8)
+                      .reshape(len(ui), 4)))
+        del task
+
+    ui_st = MapStage(num_partitions, dep(1), ui_fn, parents=[cat_join])
+
+    def store_join_fn(ctx, writer, task):
+        ss_keys, ss_rows = _read_u32(ctx, 0, 4)
+        sr_keys, _ = _read_u32(ctx, 1, 2)
+        returned = set(sr_keys.tolist())
+        keep = np.array([k in returned for k in ss_keys.tolist()], bool)
+        rows = ss_rows[keep]
+        writer.write((rows[:, 2].astype(np.uint64),   # by sold_date
+                      np.ascontiguousarray(rows, "<u4").view(np.uint8)
+                      .reshape(len(rows), 16)))
+        del task
+
+    store_join = MapStage(num_partitions, dep(4), store_join_fn,
+                          parents=[ss_st, sr_st])
+
+    def date_join_fn(ctx, writer, task):
+        _, rows = _read_u32(ctx, 0, 4)
+        dkeys, dcols = _read_u32(ctx, 1, 2)
+        year = dict(zip(dkeys.tolist(), dcols[:, 1].tolist()))
+        ys = np.array([year.get(d, 99) for d in rows[:, 2].tolist()],
+                      np.uint32)
+        keep = ys <= 1
+        out = np.stack([rows[:, 0][keep], ys[keep], rows[:, 3][keep]],
+                       axis=1)
+        writer.write((out[:, 0].astype(np.uint64),    # by item
+                      np.ascontiguousarray(out, "<u4").view(np.uint8)
+                      .reshape(len(out), 12)))
+        del task
+
+    date_join = MapStage(num_partitions, dep(3), date_join_fn,
+                         parents=[store_join, date_st])
+
+    def final_fn(ctx, task):
+        _, rows = _read_u32(ctx, 0, 3)
+        ui_keys, _ = _read_u32(ctx, 1, 1)
+        ui = set(ui_keys.tolist())
+        cnt: dict = {}
+        psum: dict = {}
+        for i, y, p in rows.tolist():
+            if i not in ui:
+                continue
+            cnt[(i, y)] = cnt.get((i, y), 0) + 1
+            psum[(i, y)] = psum.get((i, y), 0) + p
+        items = total = 0
+        for i in {i for i, _y in cnt}:
+            c0, c1 = cnt.get((i, 0), 0), cnt.get((i, 1), 0)
+            if c0 > 0 and c1 > 0 and c1 <= c0:
+                items += 1
+                total += psum.get((i, 0), 0) + psum.get((i, 1), 0)
+        del task
+        return items, total
+
+    result = ResultStage(num_partitions, final_fn,
+                         parents=[date_join, ui_st])
+
+    def finish(results):
+        return (sum(r[0] for r in results), sum(r[1] for r in results))
+
+    return result, finish

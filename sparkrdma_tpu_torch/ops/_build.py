@@ -5,7 +5,8 @@ with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds). Libraries go into ``build/`` at the root of the
 checkout, named by a digest of the source and the flags, so an edited
 source never loads a stale library. The source is the only input.
-Building happens at first use, never at import.
+Building happens at first use, never at import. (The host runtime
+shim builds apart, in ``runtime/shim_build.py``.)
 """
 
 from __future__ import annotations

@@ -1,1 +1,8 @@
-"""The virtual mesh, the ragged exchange and the fused device step."""
+from sparkrdma_tpu_torch.parallel.rpc_msg import (  # noqa: F401
+    AnnounceMsg,
+    HelloMsg,
+    RpcMsg,
+    decode_message,
+    segments,
+    Reassembler,
+)

@@ -26,9 +26,13 @@ int32 rows, keys compared as zero-extended int64 (``utils.u32``).
   through ``topology.record_cross_slice``; one slice's overflow degrades
   only that slice's rows to host-side serving.
 
-Overflow (a slot pair past its slot, or a receive past the ``out_factor``
-headroom) raises ``OverflowError`` from the flat drivers; degrading a
-stage to the host plane is the engine's remedy, not theirs.
+Overflow (a receive past the ``out_factor`` headroom) raises
+``OverflowError`` from the flat drivers; degrading a stage to the host
+plane is the engine's remedy, not theirs. The drivers size each round's
+ring slots from the round's largest (source, destination) pair, counted
+on the host (``_slot_rows``), so a pair never overflows its slot: like the
+JAX package's ragged transport on the TPU, only a receiver's capacity
+bounds a round.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from torch.profiler import record_function
 from sparkrdma_tpu_torch.ops.partition import uniform_splitters
 from sparkrdma_tpu_torch.parallel import topology as topology_mod
 from sparkrdma_tpu_torch.parallel.exchange import (
+    bucket_quota,
     group_by_destination,
     ragged_exchange_shard,
     record_exchange,
@@ -350,11 +355,13 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
       doubles as the destination grouping, and per-destination counts
       come from D-1 binary searches. ``step(rows)`` with ``rows:
       int32[D, cap, row_words]``, key = column 0.
-    * ``"dest"`` — caller-computed destinations: ``step(rows, dest)``
-      with ``dest: int[D, cap]``; ``dest < 0`` marks padding rows (not
-      sent). Rows group by destination, ride the exchange, and key-sort
-      on the receiving shard (``key_words`` 1 = u32 column 0, 2 = u64
-      packed columns [0, 1]).
+    * ``"dest"`` — caller-computed destinations: ``step(rows, dest,
+      slot_rows=None)`` with ``dest: int[D, cap]``; ``dest < 0`` marks
+      padding rows (not sent); ``slot_rows`` sizes the slot transports'
+      per-pair slots (``ragged_exchange_shard``). Rows group by
+      destination, ride the exchange, and key-sort on the receiving
+      shard (``key_words`` 1 = u32 column 0, 2 = u64 packed columns
+      [0, 1]).
 
     Returns ``(sorted_rows [D, cap * out_factor, row_words],
     recv_counts int32[D, D], overflowed bool[D])`` with each shard's rows
@@ -389,13 +396,14 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
                      for k in _row_keys(received, key_words))
         return _local_sort(received, keys, sort_mode, write_back)[0]
 
-    def exchange_and_sort(grouped, counts):
+    def exchange_and_sort(grouped, counts, slot_rows=None):
         output = torch.zeros(
             (n, grouped.shape[1] * out_factor, row_words),
             dtype=grouped.dtype, device=grouped.device)
         with record_function("fused.exchange"):
             received, recv_counts, _, overflowed = ragged_exchange_shard(
-                grouped, counts, output=output, impl=impl)
+                grouped, counts, output=output, impl=impl,
+                slot_rows=slot_rows)
         with record_function("fused.receive_sort"):
             sorted_rows = sort_received(received, recv_counts.sum(dim=1))
         return sorted_rows, recv_counts, overflowed
@@ -434,13 +442,14 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
 
         return step
 
-    def step(rows: torch.Tensor, dest: torch.Tensor):
+    def step(rows: torch.Tensor, dest: torch.Tensor,
+             slot_rows: Optional[int] = None):
         dest = dest.reshape(rows.shape[:2])
         if n == 1:
             return no_exchange(rows, dest >= 0)
         with record_function("fused.local_sort"):
             grouped, counts = group_by_destination(rows, dest, n)
-        return exchange_and_sort(grouped, counts)
+        return exchange_and_sort(grouped, counts, slot_rows)
 
     return step
 
@@ -537,6 +546,27 @@ class _RoundIO:
         return tuple(t.numpy() for t in tensors)
 
 
+def _slot_rows(dchunk: np.ndarray, shards: int, cap: int,
+               out_factor: int) -> int:
+    """Rows per (source, destination) slot for one round of ``cap`` rows
+    per shard (shard ``s`` holds the round's rows ``[s * cap, (s + 1) *
+    cap)``, bound for ``dchunk``'s shards): the receive buffer's even
+    share ``cap * out_factor // shards``, or, where a pair of this round
+    carries more, that pair rounded up to a power of two and held to
+    ``cap``, the most one source shard can send. A committed map output
+    is partition-contiguous, so a round's source shard may send all its
+    rows to one or two destinations. Counted on the host from the
+    round's destinations, with no wait on the card."""
+    even = cap * out_factor // shards
+    top = 0
+    for lo in range(0, len(dchunk), cap):
+        d = dchunk[lo:lo + cap]
+        d = d[(d >= 0) & (d < shards)]
+        if len(d):
+            top = max(top, int(np.bincount(d, minlength=shards).max()))
+    return even if top <= even else min(cap, bucket_quota(top))
+
+
 def _runs_into(runs: List[list], lo: int, out: np.ndarray,
                counts: np.ndarray) -> None:
     """Append each shard's received rows (the first ``counts[i].sum()``
@@ -604,7 +634,8 @@ def run_fused_exchange_rounds(mesh: VirtualMesh, blocks, row_words: int,
 
     Returns ``(per_shard_sorted_rows, rounds)``: shard d's rows key-sorted
     (u64 packed keys when ``key_words == 2``), rounds merged by the
-    tournament merge. Raises ``OverflowError`` on any round's receive
+    tournament merge. Each round's slots fit its largest pair
+    (``_slot_rows``). Raises ``OverflowError`` on any round's receive
     overflow; the caller (the engine) degrades the stage to the host
     dataplane."""
     tracer = tracer if tracer is not None else trace_mod.NULL
@@ -619,11 +650,13 @@ def run_fused_exchange_rounds(mesh: VirtualMesh, blocks, row_words: int,
     def dispatch(r: int, chunk: np.ndarray, dchunk: np.ndarray):
         """Stage one round and queue its step and its download; nothing
         here waits for the card."""
-        with _span(tracer, "exchange.round", round=r, rows=len(chunk)):
+        q = _slot_rows(dchunk, n, per_round // n, out_factor)
+        with _span(tracer, "exchange.round", round=r, rows=len(chunk),
+                   slot_rows=q):
             with _span(tracer, "exchange.stage", round=r):
                 rows_d, dest_d = io.upload(r % 2, chunk, dchunk, n,
                                            per_round)
-            handle = io.download(r % 2, step(rows_d, dest_d))
+            handle = io.download(r % 2, step(rows_d, dest_d, q))
         record_exchange(len(chunk))
         return r, handle
 
@@ -785,13 +818,15 @@ def run_hierarchical_exchange(mesh: VirtualMesh,
                 if s in degraded:
                     host_fallback(s, chunk, dchunk)
                     continue
+                local = dchunk - lo   # slice-local destination shards
+                q = _slot_rows(local, ns, per_round // ns, out_factor)
                 with _span(tracer, "exchange.round", round=rounds,
-                           phase=phase, slice=s, rows=len(chunk)):
+                           phase=phase, slice=s, rows=len(chunk),
+                           slot_rows=q):
                     with _span(tracer, "exchange.stage", round=rounds):
-                        # slice-local destination shards
-                        rows_d, dest_d = io.upload(s, chunk, dchunk - lo,
-                                                   ns, per_round)
-                    handle = io.download(s, step(rows_d, dest_d))
+                        rows_d, dest_d = io.upload(s, chunk, local, ns,
+                                                   per_round)
+                    handle = io.download(s, step(rows_d, dest_d, q))
                 record_exchange(len(chunk))
                 batch.append((s, lo, chunk, dchunk, handle))
             if batch and not charged:

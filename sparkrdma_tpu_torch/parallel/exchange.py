@@ -14,9 +14,11 @@ is a ``[D]`` one. Results are bit-identical to the JAX package's.
 
 Transports (``impl``):
 
-* ``"ring"`` — fixed per-pair slots moved by the hand-written ring
+* ``"ring"`` — per-pair slots moved by the hand-written ring
   all-to-all kernel (``ops.ring_exchange``); pair skew past a slot trips
-  the overflow flag.
+  the overflow flag. A slot is ``out_capacity // D`` rows unless the
+  caller sizes it (``slot_rows``), as the round drivers do from each
+  round's largest pair.
 * ``"dense"`` — the same slots moved by a swap of the two leading axes
   (the ``lax.all_to_all`` of the JAX package).
 * ``"gather"`` — direct compaction of each source's segment, the
@@ -159,6 +161,7 @@ def resolve_transport(device, impl: str) -> str:
 def ragged_exchange_shard(data: torch.Tensor, send_counts: torch.Tensor,
                           output: Optional[torch.Tensor] = None,
                           impl: str = "auto",
+                          slot_rows: Optional[int] = None,
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor, torch.Tensor]:
     """Ragged all-to-all of every shard at once.
@@ -175,6 +178,10 @@ def ragged_exchange_shard(data: torch.Tensor, send_counts: torch.Tensor,
         each shard's received total.
       impl: ``ring``, ``dense``, ``gather`` or ``auto`` (see
         ``resolve_impl``). Identical results whenever the slots fit.
+      slot_rows: rows per (source, destination) slot of the slot
+        transports (``ring``, ``dense``); defaults to ``out_capacity //
+        D``. A caller that knows the largest pair sizes the slot to it,
+        and then only the receive capacity can overflow.
 
     Returns:
       ``(received, recv_counts, recv_offsets, overflowed)``: ``received
@@ -191,18 +198,18 @@ def ragged_exchange_shard(data: torch.Tensor, send_counts: torch.Tensor,
     n = mat.shape[0]
     if output is None:
         output = torch.zeros_like(data)
-    if impl in ("dense", "ring") and output.shape[1] < n:
-        # q = out_cap // D would be zero: no slot can carry even one row;
-        # gather handles any capacity
+    q = slot_rows or output.shape[1] // n
+    if impl in ("dense", "ring") and q < 1:
+        # a zero-row slot can carry nothing; gather handles any capacity
         impl = "gather"
     recv_sizes = mat.t()
     pair_overflow = torch.zeros(n, dtype=torch.bool, device=data.device)
     if impl == "dense":
         received, recv_sizes, pair_overflow = _dense_exchange(
-            data, mat, output)
+            data, mat, output, q)
     elif impl == "ring":
         received, recv_sizes, pair_overflow = _ring_exchange(
-            data, mat, output)
+            data, mat, output, q)
     else:
         received = _gather_exchange(data, mat, output)
     overflowed = pair_overflow | (recv_sizes.sum(dim=1) > output.shape[1])
@@ -223,15 +230,14 @@ def _ring_move_blocks(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def _slot_exchange(data: torch.Tensor, mat: torch.Tensor,
-                   output: torch.Tensor, move):
+                   output: torch.Tensor, q: int, move):
     """Fixed-slot exchange, shared by ``_dense_exchange`` and
     ``_ring_exchange``, which differ only in ``move`` (the ``[D, D, q,
-    ...]`` block transpose): every (src, dst) pair owns ``q =
-    out_capacity // D`` slot rows. Exact whenever no pair exceeds its
-    slot; a pair overflow is the third return value, and receive counts
-    are always the TRUE per-source counts."""
+    ...]`` block transpose): every (src, dst) pair owns ``q`` slot rows.
+    Exact whenever no pair exceeds its slot; a pair overflow is the third
+    return value, and receive counts are always the TRUE per-source
+    counts."""
     n = mat.shape[0]
-    q = output.shape[1] // n
     with record_function("exchange.slot_fill"):
         send, _, _, _ = _slot_fill(data, _exclusive_cumsum(mat, dim=1), mat,
                                    n, q)
@@ -245,16 +251,16 @@ def _slot_exchange(data: torch.Tensor, mat: torch.Tensor,
 
 
 def _dense_exchange(data: torch.Tensor, mat: torch.Tensor,
-                    output: torch.Tensor):
+                    output: torch.Tensor, q: int):
     """Fixed slots moved by a swap of the two leading axes (the JAX
     package's ``lax.all_to_all``)."""
-    return _slot_exchange(data, mat, output, lambda b: b.transpose(0, 1))
+    return _slot_exchange(data, mat, output, q, lambda b: b.transpose(0, 1))
 
 
 def _ring_exchange(data: torch.Tensor, mat: torch.Tensor,
-                   output: torch.Tensor):
+                   output: torch.Tensor, q: int):
     """The same slots, moved by the ring all-to-all kernel."""
-    return _slot_exchange(data, mat, output, _ring_move_blocks)
+    return _slot_exchange(data, mat, output, q, _ring_move_blocks)
 
 
 def _gather_exchange(data: torch.Tensor, mat: torch.Tensor,

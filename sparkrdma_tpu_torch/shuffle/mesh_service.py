@@ -17,8 +17,9 @@ W], partition_ids i64[*])``.
 Managers are duck-typed: each is read only for its ``resolver``
 (``map_ids``, ``local_blocks``), and the handle only for ``shuffle_id``,
 ``num_partitions``, ``row_payload_bytes`` and ``partitioner.build``, so
-the JAX package's managers and the port's ``shuffle.local_store`` serve
-alike. The fused and hierarchical reduces record their host staging on
+the port's managers (``shuffle.manager``, what the engine's mesh mode
+stages from) and the JAX package's serve alike. The fused and
+hierarchical reduces record their host staging on
 ``tracer`` (``mesh.decode``: reading and decoding committed outputs,
 ``mesh.pack``: ``_rows_to_u32``, ``mesh.partition``, ``mesh.unpack``),
 beside the round driver's ``exchange.*`` spans.

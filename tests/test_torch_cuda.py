@@ -4,8 +4,9 @@ bodies, at the TMA body's tile edges and pipeline depths, at the shard
 limit, on a side stream and replayed in a CUDA graph), its argument
 checks, the TeraSort step and the chunked exchange on the card against
 the same calls on the CPU, q95 and q64 on the ring against ``dense``,
-pinned staging, and the round and hierarchical drivers. Marked ``cuda``; each skips with a
-reason where there is no card. This file imports no JAX, so it runs on a
+pinned staging, the round and hierarchical drivers, and a mesh-mode
+engine job. Marked ``cuda``; each skips with a reason where there is no
+card. This file imports no JAX, so it runs on a
 machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -319,36 +320,58 @@ def test_round_drivers_on_card(cuda):
         assert (keys % 8 == d).all() and (keys[:-1] <= keys[1:]).all()
 
 
-def _committed_stage(maps=3, rows=4000, width=92, partitions=200):
-    """Executor stores holding ``maps`` committed outputs of random
-    records, hash-partitioned; returns (executors, handle)."""
-    from sparkrdma_tpu_torch.shuffle.local_store import LocalExecutor
+@pytest.fixture(scope="module")
+def committed_stage(tmp_path_factory):
+    """A driver and two executors of the port on localhost holding 3 map
+    outputs of random records, hash-partitioned into 200 partitions and
+    written through the executors' writers; yields (the executors'
+    managers, the handle) and stops every manager."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernel has no CPU mode")
+    from sparkrdma_tpu_torch.config import TpuShuffleConf
     from sparkrdma_tpu_torch.shuffle.manager import (
         PartitionerSpec,
-        ShuffleHandle,
+        TpuShuffleManager,
     )
 
-    handle = ShuffleHandle(1, maps, partitions, width,
-                           PartitionerSpec("hash"))
-    partitioner = handle.partitioner.build(partitions)
-    rng = np.random.default_rng(21)
-    executors = [LocalExecutor(), LocalExecutor()]
-    for m in range(maps):
-        keys = rng.integers(0, 2**64, rows, dtype=np.uint64)
-        payload = rng.integers(0, 256, (rows, width), dtype=np.uint8)
-        executors[m % 2].resolver.commit(1, m, keys, payload, partitioner,
-                                         partitions)
-    return executors, handle
+    maps, rows, width, partitions = 3, 4000, 92, 200
+    tmp = tmp_path_factory.mktemp("committed_stage")
+    conf = TpuShuffleConf(connect_timeout_ms=5000)
+    driver = TpuShuffleManager(conf, is_driver=True)
+    executors = []
+    try:
+        executors = [TpuShuffleManager(conf, driver_addr=driver.driver_addr,
+                                       executor_id=str(i),
+                                       spill_dir=str(tmp / f"e{i}"))
+                     for i in range(2)]
+        for ex in executors:
+            ex.executor.wait_for_members(2)
+        handle = driver.register_shuffle(1, num_maps=maps,
+                                         num_partitions=partitions,
+                                         partitioner=PartitionerSpec("hash"),
+                                         row_payload_bytes=width)
+        rng = np.random.default_rng(21)
+        for m in range(maps):
+            writer = executors[m % 2].get_writer(handle, m)
+            writer.write_batch(
+                rng.integers(0, 2**64, rows, dtype=np.uint64),
+                rng.integers(0, 256, (rows, width), dtype=np.uint8))
+            writer.close()
+        yield executors, handle
+    finally:
+        for ex in executors:
+            ex.stop()
+        driver.stop()
 
 
-def test_read_to_device_on_card(cuda):
+def test_read_to_device_on_card(cuda, committed_stage):
     """The on-ramp stages through a pinned buffer onto the card, byte-equal
     after download, and its result stands when the caller reuses or frees
     the chunks right after return."""
     from sparkrdma_tpu_torch.shuffle import reader as treader
     from sparkrdma_tpu_torch.shuffle.writer import decode_rows
 
-    executors, handle = _committed_stage()
+    executors, handle = committed_stage
     width = handle.row_payload_bytes
     chunks = [bytearray(executors[m % 2].resolver.local_blocks(
         1, m, 0, handle.num_partitions)) for m in range(handle.num_maps)]
@@ -370,13 +393,14 @@ def test_read_to_device_on_card(cuda):
 
 
 @pytest.mark.parametrize("rows_per_round", [0, 1000])
-def test_mesh_reduce_fused_on_card_matches_cpu(cuda, rows_per_round):
+def test_mesh_reduce_fused_on_card_matches_cpu(cuda, committed_stage,
+                                               rows_per_round):
     """The fused mesh reduce on the card (the ring kernel once per round)
     equals the same call on the CPU, byte for byte."""
     from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
     from sparkrdma_tpu_torch.shuffle import mesh_service as tms
 
-    executors, handle = _committed_stage()
+    executors, handle = committed_stage
     before = tre.LAUNCHES
     got = tms.run_mesh_reduce_fused(executors, handle, VirtualMesh(8, cuda),
                                     rows_per_round=rows_per_round,
@@ -389,3 +413,84 @@ def test_mesh_reduce_fused_on_card_matches_cpu(cuda, rows_per_round):
         for a, b in zip(g, w):
             np.testing.assert_array_equal(a, b)
     assert sum(len(k) for k, _, _ in got) == 3 * 4000
+
+
+@pytest.mark.parametrize("P", [16, 4])
+def test_engine_job_on_card_rides_the_device_plane(cuda, tmp_path,
+                                                   monkeypatch, P):
+    """A small mesh-mode ``DAGEngine`` job on the card: the cost model
+    picks the device plane, the ring kernel runs, no stage degrades, no
+    TCP fetcher is built, and every partition equals the host truth. With
+    4 partitions a round's source shard sends to one or two destinations
+    (committed outputs are partition-contiguous): the ring's slots must
+    grow to the largest pair."""
+    from sparkrdma_tpu_torch.config import TpuShuffleConf
+    from sparkrdma_tpu_torch.engine import DAGEngine, MapStage, ResultStage
+    from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+    from sparkrdma_tpu_torch.shuffle import fetcher as tfetcher
+    from sparkrdma_tpu_torch.shuffle.manager import PartitionerSpec
+    from sparkrdma_tpu_torch.shuffle.spark_compat import (
+        ShuffleDependency,
+        SparkCompatShuffleManager,
+    )
+    from sparkrdma_tpu_torch.utils.trace import Tracer
+
+    built = {"n": 0}
+    orig = tfetcher.ShuffleFetcher.__init__
+
+    def spy(self, *a, **kw):
+        built["n"] += 1
+        return orig(self, *a, **kw)
+
+    monkeypatch.setattr(tfetcher.ShuffleFetcher, "__init__", spy)
+    maps, rows, width = 6, 3000, 12
+
+    def table(m):
+        rng = np.random.default_rng(500 + m)
+        return (rng.integers(0, 2**64, rows, dtype=np.uint64),
+                rng.integers(0, 256, (rows, width), dtype=np.uint8))
+
+    def map_fn(ctx, writer, task_id):
+        writer.write(table(task_id))
+
+    def reduce_fn(ctx, task_id):
+        reader = ctx.read(0)
+        keys, payload = reader._r.read_all()
+        return keys, payload, reader.metrics.remote_bytes
+
+    conf = TpuShuffleConf(connect_timeout_ms=5000)
+    driver = SparkCompatShuffleManager(conf, isDriver=True)
+    execs = [SparkCompatShuffleManager(
+        conf, driverAddr=driver.driverAddr, executorId=str(i),
+        spill_dir=str(tmp_path / f"e{i}")) for i in range(2)]
+    try:
+        for ex in execs:
+            ex.native.executor.wait_for_members(2)
+        # a budget that bounds the stage to a few rounds
+        engine = DAGEngine(driver, execs, mesh=VirtualMesh(8, cuda),
+                           device_hbm_budget=200_000)
+        engine.tracer = Tracer()
+        stage = MapStage(maps, ShuffleDependency(
+            P, PartitionerSpec("hash"), row_payload_bytes=width), map_fn)
+        before = tre.LAUNCHES
+        out = engine.run(ResultStage(P, reduce_fn, parents=[stage]))
+        assert tre.LAUNCHES > before
+    finally:
+        for ex in execs:
+            ex.stop()
+        driver.stop()
+    planes = [e["args"]["plane"]
+              for e in engine.tracer.events("exchange.select")]
+    assert planes == ["device"]
+    assert engine.tracer.events("exchange.degrade") == []
+    assert len(engine.tracer.events("exchange.round")) > 1
+    assert built["n"] == 0
+    keys, payload = (np.concatenate(c) for c in zip(
+        *(table(m) for m in range(maps))))
+    parts = PartitionerSpec("hash").build(P)(keys)
+    for p, (got_k, got_p, remote) in enumerate(out):
+        mine = np.flatnonzero(parts == p)
+        order = mine[np.argsort(keys[mine], kind="stable")]
+        np.testing.assert_array_equal(got_k, keys[order])
+        np.testing.assert_array_equal(got_p, payload[order])
+        assert remote == 0

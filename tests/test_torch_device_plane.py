@@ -5,7 +5,9 @@ topologies (the multi-slice scoring included), ``auto_rows_per_round``,
 the double-buffered round driver (both key layouts, one shot and bounded
 rounds, pipelined and sequential, empty input; its spans and overlap
 instants; overflow) and the hierarchical driver (two slice layouts, the
-cross-slice tally, a flat topology, per-slice degrade). The port runs on
+cross-slice tally, a flat topology, per-slice degrade), and both drivers'
+ring slots sized from each round's largest pair, so destination-grouped
+rows (a committed map output's layout) overflow no pair. The port runs on
 a CPU ``VirtualMesh`` with each of its transports; the JAX side on the
 conftest's 8-device CPU mesh with ``gather`` and ``dense``."""
 
@@ -243,6 +245,63 @@ def test_round_overflow_raises_in_both(mesh, vmesh):
                                impl="gather")
 
 
+def _by_destination(rows):
+    """Rows spread evenly over the D shards and laid out as a committed
+    map output lays them out, grouped by destination: a round's source
+    shard sends all its rows to one or two destinations."""
+    dest = (np.arange(len(rows)) % D).astype(np.int32)
+    order = np.argsort(dest, kind="stable")
+    return rows[order], dest[order]
+
+
+@pytest.mark.parametrize("dest,cap,out_factor,want", [
+    (np.tile(np.arange(D), 16), 16, 2, 4),        # even pairs: the share
+    (np.repeat(np.arange(D), 16), 16, 2, 16),     # one destination each
+    ([0] * 5 + [1] * 4 + [2] * 4 + [3] * 3, 16, 2, 8),   # 5, a power of 2
+    ([-1] * 16 + [D] * 16, 16, 2, 4),             # padding is not sent
+    ([3] * 20, 16, 2, 16),                        # a short last shard
+    ([6] * 12, 12, 2, 12),                        # held to one shard's rows
+    ([1] * 12, 12, 8, 12),                        # the share already fits
+], ids=["even", "contiguous", "bucketed", "padding", "short", "capped",
+        "fits"])
+def test_slot_rows_fit_the_largest_pair(dest, cap, out_factor, want):
+    assert tdp._slot_rows(np.asarray(dest, np.int32), D, cap,
+                          out_factor) == want
+
+
+@pytest.mark.parametrize("rows_per_round", [0, 128])
+@pytest.mark.parametrize("port_impl", ["ring", "dense"])
+def test_round_slots_fit_destination_grouped_rows(mesh, vmesh, port_impl,
+                                                  rows_per_round):
+    """Destination-grouped rows put a pair past the even slot share
+    ``cap * out_factor // D``, where the fused step's fixed slots flag an
+    overflow; the round driver sizes each round's slots from its largest
+    pair, so no round overflows and the result equals the JAX package's
+    ragged (``gather``) result."""
+    rows, dest = _by_destination(_rows(3000, 2, 8)[0])
+    cap = rows_per_round or -(-len(rows) // D)
+    step = tdp.make_fused_step(vmesh, 3, out_factor=4, impl=port_impl,
+                               key_words=2, partition="dest")
+    block = torch.from_numpy(rows[:cap * D].view(np.int32)).reshape(
+        D, cap, 3)
+    dblock = torch.from_numpy(dest[:cap * D]).reshape(D, cap)
+    assert step(block, dblock)[2].any()
+    assert not step(block, dblock, tdp._slot_rows(
+        dest[:cap * D], D, cap, 4))[2].any()
+    tracer = ttrace.Tracer()
+    got, rounds = tdp.run_fused_exchange(
+        vmesh, rows, dest, key_words=2, rows_per_round=rows_per_round,
+        out_factor=4, impl=port_impl, tracer=tracer)
+    want, want_rounds = jdp.run_fused_exchange(
+        mesh, "shuffle", rows, dest, key_words=2,
+        rows_per_round=rows_per_round, out_factor=4, impl="gather")
+    assert rounds == want_rounds
+    slots = [e["args"]["slot_rows"] for e in tracer.events("exchange.round")]
+    assert len(slots) == rounds and max(slots) > cap * 4 // D
+    for d in range(D):
+        np.testing.assert_array_equal(got[d], want[d])
+
+
 def test_stage_to_device_on_the_cpu_aliases(vmesh):
     arr = np.arange(48, dtype=np.uint32).reshape(16, 3)
     staged = tdp.stage_to_device(arr, vmesh)
@@ -308,6 +367,29 @@ def test_hierarchical_flat_topology_is_the_flat_driver(vmesh):
         vmesh, ttopo.Topology((4, 4)), np.zeros((0, 3), np.uint32),
         np.zeros(0, np.int32), np.zeros(0, np.int32), impl="gather")
     assert rounds == 0 and all(len(e) == 0 for e in empty)
+
+
+def test_hierarchical_slots_fit_destination_grouped_rows(mesh, vmesh):
+    """The two-level driver sizes each slice round's slots as the flat
+    one does: destination-grouped rows degrade no slice on the ring and
+    equal the JAX package's ``gather`` result."""
+    rows, _, home = _slice_rows(3000, (4, 4), 12)
+    dest = (np.arange(len(rows)) % D).astype(np.int32)
+    order = np.lexsort((dest, home))
+    rows, dest, home = rows[order], dest[order], home[order]
+    tracer = ttrace.Tracer()
+    got, rounds = tdp.run_hierarchical_exchange(
+        vmesh, ttopo.Topology((4, 4)), rows, dest, home, key_words=2,
+        out_factor=2, impl="ring", rows_per_round=128, tracer=tracer)
+    assert tracer.events("exchange.degrade") == []
+    assert max(e["args"]["slot_rows"]
+               for e in tracer.events("exchange.round")) > 128 * 2 // 4
+    want, want_rounds = jdp.run_hierarchical_exchange(
+        mesh, "shuffle", jtopo.Topology((4, 4)), rows, dest, home,
+        key_words=2, out_factor=2, impl="gather", rows_per_round=128)
+    assert rounds == want_rounds
+    for d in range(D):
+        np.testing.assert_array_equal(got[d], want[d])
 
 
 def test_slice_overflow_degrades_only_that_slice(mesh, vmesh):

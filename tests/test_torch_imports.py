@@ -39,10 +39,20 @@ def test_port_has_sources():
                  "models/tpcds.py", "models/tpcds_queries.py",
                  "ops/sort.py", "ops/aggregate.py", "parallel/topology.py",
                  "utils/trace.py", "shuffle/mesh_service.py",
-                 "shuffle/reader.py", "shuffle/local_store.py",
+                 "shuffle/reader.py",
                  "shuffle/writer.py", "shuffle/fetcher.py",
                  "shuffle/planner.py", "shuffle/manager.py",
-                 "utils/integrity.py"):
+                 "utils/integrity.py", "engine.py", "rdd.py", "tasks.py",
+                 "shared_vars.py", "config.py", "runtime/native.py",
+                 "runtime/shim_build.py",
+                 "runtime/pool.py", "runtime/staging.py",
+                 "runtime/blockserver.py", "parallel/endpoints.py",
+                 "parallel/transport.py", "parallel/membership.py",
+                 "shuffle/spark_compat.py", "shuffle/resolver.py",
+                 "shuffle/native_fetch.py", "shuffle/push_merge.py",
+                 "shuffle/ha.py", "shuffle/cold_tier.py",
+                 "shuffle/tenancy.py", "shuffle/shard_plane.py",
+                 "shuffle/dist_cache.py", "utils/codecs.py"):
         assert must in names
     assert (PORT / "csrc" / "ring_exchange.cu").exists()
 
@@ -68,3 +78,27 @@ def test_import_loads_no_jax_and_no_triton():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_package_import_is_lazy():
+    """``import sparkrdma_tpu_torch`` loads the configuration only: no
+    socket code, no torch; the engine-facing names resolve on first use,
+    as the JAX package's top-level exports do."""
+    names = ("TpuShuffleManager", "SparkCompatShuffleManager", "DAGEngine",
+             "MapStage", "ResultStage", "EngineContext", "RDD", "BatchRDD",
+             "Broadcast", "Accumulator", "ShuffleDependency",
+             "PartitionerSpec", "ShuffleHandle")
+    code = ("import sys\n"
+            "import sparkrdma_tpu_torch as p\n"
+            "early = sorted(m for m in ('socket', 'torch', "
+            "'sparkrdma_tpu_torch.parallel.transport', "
+            "'sparkrdma_tpu_torch.runtime.native') if m in sys.modules)\n"
+            f"got = {{n: getattr(p, n).__module__ for n in {names!r}}}\n"
+            "print(early, got)\n"
+            "sys.exit(1 if early else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "sparkrdma_tpu_torch.engine" in proc.stdout
+    assert "sparkrdma_tpu_torch.rdd" in proc.stdout
+    assert "sparkrdma_tpu." not in proc.stdout

@@ -11,9 +11,9 @@ the ring transport (the kernel's plain twin on the CPU) and ``gather``.
 Per-shard ``(keys, payload, partition_ids)`` compare byte for byte;
 ``read_to_device`` compares as a multiset of records, since JAX's order
 is a fetch order. Also: the edges (empty shuffle, overflow, a missing,
-duplicate or corrupt map), the port's in-memory ``local_store`` against
-the JAX resolver's bytes, ``slice_aligned_partition_map``, and the
-partial copies of the host plane (``decode_rows``, ``PartitionerSpec``,
+duplicate or corrupt map), the port's own managers against the JAX
+resolver's bytes, ``slice_aligned_partition_map``, and the
+host-plane names the service uses (``decode_rows``, ``PartitionerSpec``,
 the errors)."""
 
 import jax
@@ -30,6 +30,7 @@ from sparkrdma_tpu.shuffle import planner as jplanner
 from sparkrdma_tpu.shuffle import writer as jwriter
 from sparkrdma_tpu.shuffle.manager import PartitionerSpec, TpuShuffleManager
 from sparkrdma_tpu.utils import integrity as jintegrity
+from sparkrdma_tpu_torch.config import TpuShuffleConf as TConf
 from sparkrdma_tpu_torch.parallel import topology as ttopo
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 from sparkrdma_tpu_torch.shuffle import fetcher as tfetcher
@@ -37,7 +38,6 @@ from sparkrdma_tpu_torch.shuffle import manager as tmanager
 from sparkrdma_tpu_torch.shuffle import mesh_service as tms
 from sparkrdma_tpu_torch.shuffle import planner as tplanner
 from sparkrdma_tpu_torch.shuffle import writer as twriter
-from sparkrdma_tpu_torch.shuffle.local_store import LocalExecutor, LocalStore
 from sparkrdma_tpu_torch.shuffle.reader import read_to_device
 from sparkrdma_tpu_torch.utils import integrity as tintegrity
 from sparkrdma_tpu_torch.utils.trace import Tracer
@@ -129,8 +129,9 @@ def _run(pkg: str, variant: str, execs, handle, mesh, **kw):
     A committed output is partition-contiguous, so a small round's shard
     holds a few whole partitions and one (source, destination) pair can
     carry all of its rows; the round variants get the headroom of
-    ``out_factor = D`` unless the caller sets one, so the ring's fixed
-    pair slots (``out_cap // D`` rows) hold every pair."""
+    ``out_factor = D`` unless the caller sets one, so the streamed
+    reduce's fixed pair slots (``out_cap // D`` rows) hold every pair
+    (the fused driver sizes its slots from each round's pairs)."""
     ms = jms if pkg == "jax" else tms
     if variant in ("fused_rounds", "streamed", "streamed_sequential"):
         kw.setdefault("out_factor", D)
@@ -255,48 +256,57 @@ def test_fused_reduce_traces_its_host_staging(cluster, shuffles, vmesh):
     assert len(tracer.events("exchange.round")) >= 2
 
 
-def test_local_store_serves_the_resolver_bytes(cluster, shuffles, vmesh):
-    """The port's in-memory store lays out a map output byte for byte as
-    the JAX writer and resolver do, and a reduce staged from it with the
-    port's handle equals the reduce staged from the JAX managers."""
+@pytest.fixture(scope="module")
+def port_cluster(tmp_path_factory):
+    """The port's own driver and two executors, for the module."""
+    tmp = tmp_path_factory.mktemp("mesh_service_port")
+    conf = TConf(connect_timeout_ms=5000)
+    driver = tmanager.TpuShuffleManager(conf, is_driver=True)
+    execs = []
+    try:
+        execs = [tmanager.TpuShuffleManager(
+            conf, driver_addr=driver.driver_addr, executor_id=str(i),
+            spill_dir=str(tmp / f"e{i}")) for i in range(2)]
+        for ex in execs:
+            ex.executor.wait_for_members(2)
+        yield driver, execs
+    finally:
+        for ex in execs:
+            ex.stop()
+        driver.stop()
+
+
+def test_port_managers_serve_the_resolver_bytes(cluster, shuffles,
+                                                port_cluster, vmesh):
+    """The same map outputs written through the port's own writers lay
+    out byte for byte as the JAX writer and resolver lay them out, and a
+    reduce staged from the port's managers equals the reduce staged from
+    the JAX managers."""
     _, execs = cluster
+    tdriver, texecs = port_cluster
     for kind, (handle, inputs) in shuffles.items():
         spec = tmanager.PartitionerSpec(handle.partitioner.kind,
                                         handle.partitioner.splitters)
-        port_handle = tmanager.ShuffleHandle(
-            handle.shuffle_id, handle.num_maps, P, handle.row_payload_bytes,
-            spec)
-        stores = [LocalExecutor(), LocalExecutor()]
+        port_handle = tdriver.register_shuffle(
+            handle.shuffle_id, num_maps=len(inputs), num_partitions=P,
+            partitioner=spec, row_payload_bytes=handle.row_payload_bytes)
         for m, (keys, payload) in enumerate(inputs):
-            lengths = stores[m % 2].resolver.commit(
-                handle.shuffle_id, m, keys, payload, spec.build(P), P)
-            assert lengths.sum() == len(keys) * (8 + payload.shape[1])
+            w = texecs[m % 2].get_writer(port_handle, m)
+            w.write_batch(keys, payload)
+            w.close()
             for lo, hi in ((0, P), (2, 7), (P - 1, P), (5, 5), (9, 3)):
-                assert stores[m % 2].resolver.local_blocks(
+                assert texecs[m % 2].resolver.local_blocks(
                     handle.shuffle_id, m, lo, hi) == execs[
                         m % 2].resolver.local_blocks(handle.shuffle_id, m,
                                                      lo, hi)
-        assert stores[0].resolver.map_ids(handle.shuffle_id) == \
+        assert texecs[0].resolver.map_ids(handle.shuffle_id) == \
             execs[0].resolver.map_ids(handle.shuffle_id) == [0, 2]
-        assert stores[0].resolver.local_blocks(handle.shuffle_id, 1, 0,
+        assert texecs[0].resolver.local_blocks(handle.shuffle_id, 1, 0,
                                                P) is None
-        _assert_same(_run("port", "fused_rounds", stores, port_handle,
+        _assert_same(_run("port", "fused_rounds", texecs, port_handle,
                           vmesh, impl="ring", expect_maps=MAPS),
                      _run("port", "fused_rounds", execs, handle, vmesh,
                           impl="ring"), kind)
-
-
-def test_local_store_refuses_bad_partition_ids():
-    store = LocalStore()
-    keys = np.arange(10, dtype=np.uint64)
-    payload = np.zeros((10, 4), np.uint8)
-    with pytest.raises(ValueError, match="out-of-range"):
-        store.commit(0, 0, keys, payload, lambda k: k.astype(np.int64), 4)
-    with pytest.raises(ValueError, match="wrong-length"):
-        store.commit(0, 0, keys, payload, lambda k: k[:3], 16)
-    with pytest.raises(ValueError, match="payload"):
-        store.commit(0, 0, keys, payload[:5], lambda k: k % 4, 4)
-    assert store.map_ids(0) == []
 
 
 def test_empty_shuffle(cluster, mesh, vmesh):
@@ -505,7 +515,8 @@ def test_slice_aligned_partition_map_matches_jax(sizes, hist_id):
 
 def test_slice_aligned_partition_map_cases():
     """The JAX package's own cases (tests/test_topology.py), on the port."""
-    assert tplanner.BALANCE_FACTOR == jplanner.ReducePlanner.BALANCE_FACTOR
+    assert (tplanner.ReducePlanner.BALANCE_FACTOR
+            == jplanner.ReducePlanner.BALANCE_FACTOR)
     flat = tplanner.slice_aligned_partition_map(
         np.zeros((1, 6), np.int64), ttopo.Topology((4,)), 4)
     np.testing.assert_array_equal(flat, np.arange(6) % 4)

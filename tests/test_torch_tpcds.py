@@ -152,3 +152,82 @@ def test_run_tpcds_takes_a_pregenerated_star(vmesh):
     np.testing.assert_array_equal(
         np.stack(tt.run_tpcds(vmesh, CFG, star=star)),
         np.stack(tt.run_tpcds(vmesh, CFG, seed=5)))
+
+
+# -- the same plan as a DAG-engine job (build_tpcds_job) -------------------
+
+ENGINE_CFG = tt.TpcdsConfig(fact_rows_per_device=2048, dim1_size=150,
+                            dim2_size=200, num_groups=48)
+
+
+@pytest.fixture(scope="module")
+def clusters(tmp_path_factory):
+    """Per package: a compat driver and 3 executors, for the module."""
+    from sparkrdma_tpu.config import TpuShuffleConf as JConf
+    from sparkrdma_tpu.shuffle.spark_compat import (
+        SparkCompatShuffleManager as JCompat,
+    )
+    from sparkrdma_tpu_torch.config import TpuShuffleConf as TConf
+    from sparkrdma_tpu_torch.shuffle.spark_compat import (
+        SparkCompatShuffleManager as TCompat,
+    )
+
+    tmp = tmp_path_factory.mktemp("torch_tpcds_engine")
+    made = {}
+    try:
+        for pkg, compat, conf_cls in (("jax", JCompat, JConf),
+                                      ("port", TCompat, TConf)):
+            conf = conf_cls(connect_timeout_ms=1000,
+                            max_connection_attempts=2)
+            driver = compat(conf, isDriver=True)
+            made[pkg] = (driver, [])
+            for i in range(3):
+                made[pkg][1].append(compat(
+                    conf, driverAddr=driver.driverAddr, executorId=str(i),
+                    spill_dir=str(tmp / f"{pkg}{i}")))
+            for ex in made[pkg][1]:
+                ex.native.executor.wait_for_members(3)
+        yield made
+    finally:
+        for driver, execs in made.values():
+            for ex in execs:
+                ex.stop()
+            driver.stop()
+
+
+@pytest.mark.parametrize("plane", ["mesh", "ring", "host"])
+def test_engine_job_matches_jax_and_oracle(clusters, mesh, vmesh, plane):
+    """``build_tpcds_job`` on the port's engine, its five shuffles on the
+    mesh (``auto``, or ``ring``, the card's transport) or on the host
+    plane, equals the JAX engine's run of the JAX builder on the same
+    plane, and ``numpy_tpcds``; on the mesh no shuffle degrades."""
+    from sparkrdma_tpu.engine import DAGEngine as JEngine
+    from sparkrdma_tpu_torch.engine import DAGEngine as TEngine
+    from sparkrdma_tpu_torch.parallel import exchange as texchange
+    from sparkrdma_tpu_torch.utils.trace import Tracer
+
+    job, finish = jt.build_tpcds_job(_jcfg(ENGINE_CFG), num_maps=3,
+                                     num_partitions=4, seed=5)
+    on_mesh = plane != "host"
+    want_jax = finish(JEngine(*clusters["jax"],
+                              mesh=mesh if on_mesh else None).run(job))
+    before = texchange.DATA_PLANE["exchanges"]
+    job, finish = tt.build_tpcds_job(ENGINE_CFG, num_maps=3,
+                                     num_partitions=4, seed=5)
+    engine = TEngine(*clusters["port"], mesh=vmesh if on_mesh else None,
+                     mesh_impl="ring" if plane == "ring" else "auto")
+    engine.tracer = Tracer()
+    counts, sums = finish(engine.run(job))
+    moved = texchange.DATA_PLANE["exchanges"] - before
+    assert moved >= (5 if on_mesh else 0)
+    assert moved == 0 or on_mesh
+    assert [e["args"]["plane"] for e in engine.tracer.events(
+        "exchange.select")] == (["device"] * 5 if on_mesh else [])
+    assert engine.tracer.events("exchange.degrade") == []
+    for got, want in zip((counts, sums), want_jax):
+        np.testing.assert_array_equal(got, want)
+    star = tt.generate_star(ENGINE_CFG, 1, seed=5)
+    for got, want in zip((counts, sums),
+                         tt.numpy_tpcds(*star, ENGINE_CFG.num_groups)):
+        np.testing.assert_array_equal(got, want)
+    assert counts.sum() > 0

@@ -187,3 +187,83 @@ def test_overflow_at_undersized_out_factor(mesh, vmesh, impl):
         if impl == "dense":  # one more JAX compile per query is enough
             with pytest.raises(OverflowError):
                 jrun(mesh, _jcfg(tight), seed=seed, impl=impl)
+
+
+# -- the DAG-engine plans (build_q95_job, build_q64_job) -------------------
+
+@pytest.fixture(scope="module")
+def clusters(tmp_path_factory):
+    """Per package: a compat driver and 3 executors, for the module."""
+    from sparkrdma_tpu.config import TpuShuffleConf as JConf
+    from sparkrdma_tpu.shuffle.spark_compat import (
+        SparkCompatShuffleManager as JCompat,
+    )
+    from sparkrdma_tpu_torch.config import TpuShuffleConf as TConf
+    from sparkrdma_tpu_torch.shuffle.spark_compat import (
+        SparkCompatShuffleManager as TCompat,
+    )
+
+    tmp = tmp_path_factory.mktemp("torch_queries_engine")
+    made = {}
+    try:
+        for pkg, compat, conf_cls in (("jax", JCompat, JConf),
+                                      ("port", TCompat, TConf)):
+            conf = conf_cls(connect_timeout_ms=1000,
+                            max_connection_attempts=2)
+            driver = compat(conf, isDriver=True)
+            made[pkg] = (driver, [])
+            for i in range(3):
+                made[pkg][1].append(compat(
+                    conf, driverAddr=driver.driverAddr, executorId=str(i),
+                    spill_dir=str(tmp / f"{pkg}{i}")))
+            for ex in made[pkg][1]:
+                ex.native.executor.wait_for_members(3)
+        yield made
+    finally:
+        for driver, execs in made.values():
+            for ex in execs:
+                ex.stop()
+            driver.stop()
+
+
+@pytest.mark.parametrize("plane", ["mesh", "ring", "host"])
+@pytest.mark.parametrize("query,seed,shuffles",
+                         [("q95", Q95_SEED, 7), ("q64", Q64_SEED, 8)])
+def test_engine_job_matches_jax_and_oracle(clusters, mesh, vmesh, plane,
+                                           query, seed, shuffles):
+    """The engine plan on the port's engine, every shuffle on the mesh
+    (``auto``, or ``ring``, the card's transport) or on the host plane,
+    equals the JAX engine's run of the JAX builder on the same plane and
+    the numpy oracle (``tests/test_tpcds.py``'s sizes: 3 maps, 4
+    partitions, data scale 8); on the mesh no shuffle degrades."""
+    from sparkrdma_tpu.engine import DAGEngine as JEngine
+    from sparkrdma_tpu_torch.engine import DAGEngine as TEngine
+    from sparkrdma_tpu_torch.parallel import exchange as texchange
+    from sparkrdma_tpu_torch.utils.trace import Tracer
+
+    cfg = Q95 if query == "q95" else Q64
+    kw = dict(num_maps=3, num_partitions=4, seed=seed, data_scale=8)
+    job, finish = getattr(jq, f"build_{query}_job")(_jcfg(cfg), **kw)
+    on_mesh = plane != "host"
+    want_jax = finish(JEngine(*clusters["jax"],
+                              mesh=mesh if on_mesh else None).run(job))
+    before = texchange.DATA_PLANE["exchanges"]
+    job, finish = getattr(tq, f"build_{query}_job")(cfg, **kw)
+    engine = TEngine(*clusters["port"], mesh=vmesh if on_mesh else None,
+                     mesh_impl="ring" if plane == "ring" else "auto")
+    engine.tracer = Tracer()
+    got = finish(engine.run(job))
+    moved = texchange.DATA_PLANE["exchanges"] - before
+    assert moved >= (shuffles if on_mesh else 0)
+    assert moved == 0 or on_mesh
+    planes = [e["args"]["plane"]
+              for e in engine.tracer.events("exchange.select")]
+    assert planes == ["device"] * len(planes)
+    assert len(planes) >= (shuffles if on_mesh else 0)
+    assert planes == [] or on_mesh
+    assert engine.tracer.events("exchange.degrade") == []
+    assert got == want_jax
+    oracle = getattr(tq, f"numpy_{query}")
+    assert got == oracle(*getattr(tq, f"generate_{query}")(cfg, 8, seed),
+                         cfg)
+    assert got[0] > 0
