@@ -78,24 +78,43 @@ printing one JSON line; any failure raises and the exit code is not 0:
     over 2**20 rows, each on the device plane with no degrade; and a
     skewed stage whose receive overflows and degrades to the host plane,
     still exact;
-12. the kernel table line, then the device line last.
+12. multihost: the multi-process path (``parallel/multihost.py``) with two
+    worker processes on the one card (this script under
+    ``--multihost-worker``), 4 shards each, a global mesh of 8 whose ring
+    exchange launches the kernel over each process's own shards and
+    writes through CUDA IPC peer pointers into the other's receive arena:
+    ``run_multihost_terasort`` at the main path's 1 GiB, each global
+    shard digest-equal to the single-process ``VirtualMesh(8)`` step over
+    the same rows; the mesh-service stage (phase 9's records, maps 0-3
+    written in worker 0, 4-7 in worker 1, the driver in worker 0) through
+    ``run_multihost_mesh_reduce`` one shot and in rounds, each partition
+    digest-equal to the oracle, the topology two slices and its
+    cross-slice bytes counted; the kernel's cross-process launches held
+    to the plain move and timed at every block shape they ran at, one
+    process at a time (the other waits at a barrier), into the peers'
+    arenas and into a local buffer;
+13. the kernel table line, then the device line last.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import itertools
 import json
 import os
+import socket
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sparkrdma_tpu_torch.config import TpuShuffleConf
 from sparkrdma_tpu_torch.engine import DAGEngine, MapStage, ResultStage
@@ -120,7 +139,7 @@ from sparkrdma_tpu_torch.parallel.exchange import (
     bucket_quota,
     chunked_exchange,
 )
-from sparkrdma_tpu_torch.parallel import exchange, topology
+from sparkrdma_tpu_torch.parallel import exchange, multihost, topology
 from sparkrdma_tpu_torch.parallel.device_plane import (
     auto_rows_per_round,
     run_fused_exchange,
@@ -131,7 +150,7 @@ from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 from sparkrdma_tpu_torch.rdd import EngineContext
 from sparkrdma_tpu_torch.runtime import native
 from sparkrdma_tpu_torch.shuffle import mesh_service
-from sparkrdma_tpu_torch.shuffle.manager import PartitionerSpec
+from sparkrdma_tpu_torch.shuffle.manager import PartitionerSpec, ShuffleHandle
 from sparkrdma_tpu_torch.shuffle.reader import read_to_device
 from sparkrdma_tpu_torch.shuffle.spark_compat import (
     ShuffleDependency,
@@ -140,6 +159,7 @@ from sparkrdma_tpu_torch.shuffle.spark_compat import (
 from sparkrdma_tpu_torch.utils.trace import Tracer
 from sparkrdma_tpu_torch.utils.u32 import (
     rows_from_numpy,
+    rows_to_numpy,
     shards_from_numpy,
 )
 
@@ -228,6 +248,11 @@ SMALL_Q64_CFG = tpcds_queries.Q64Config(ss_rows_per_device=640,
                                         cs_rows_per_device=512,
                                         num_items=300, out_factor=4)
 SORT_ROWS = 1 << 20
+# the multihost phase: two processes sharing the card, 4 shards each
+MH_PROCESSES = 2
+MH_LOCAL_SHARDS = SHARDS // MH_PROCESSES
+MH_TIMEOUT_S = 400         # per worker, start to finish
+MH_WORKER_FLAG = "--multihost-worker"
 
 
 def emit(obj) -> None:
@@ -1680,6 +1705,346 @@ def phase_small_runs(mesh: VirtualMesh) -> None:
           "engine_jobs": engine_jobs, "all_match_oracles": True})
 
 
+def _digest(*arrays) -> str:
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).view(np.uint8).data)
+    return h.hexdigest()
+
+
+def _partition_digests(results) -> dict:
+    """Per partition, the digest of its keys and payload in the order a
+    reduce returned them (key-sorted): ``{partition: sha1}``."""
+    out = {}
+    for keys, payload, parts in results:
+        order = np.argsort(parts, kind="stable")
+        parts = parts[order]
+        edges = np.flatnonzero(np.diff(parts)) + 1
+        for seg in np.split(np.arange(len(parts)), edges):
+            if len(seg):
+                rows = order[seg]
+                out[int(parts[seg[0]])] = _digest(keys[rows], payload[rows])
+    return out
+
+
+def _peer_shape_check(mesh, shape, seed: int) -> dict:
+    """The cross-process launch at ``shape = (Dl, G, C, W)`` against the
+    plain move of the same global blocks (every process draws all ``G``
+    sources from ``seed`` and sends its own), then CUDA-event times of
+    this process's launch into the arenas, of the same launch into a
+    local buffer (``local_dst_ms``: what the IPC mapping costs), of the
+    plain PyTorch block moves of the same bytes, of one library copy
+    doing them, and the byte bound. The processes time in turn, each
+    while the others wait at a barrier, so no other process's kernel
+    runs meanwhile."""
+    dl, g, c, w = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    glob = torch.randint(-2**31, 2**31 - 1, (g, g, c, w), dtype=torch.int32,
+                         device="cuda", generator=gen)
+    lo = mesh.first_shard
+    mine = glob[lo:lo + dl].contiguous()
+    got = ring_exchange.ring_all_to_all_peers(mine, mesh).clone()
+    want = ring_exchange.ring_all_to_all_plain(glob)[lo:lo + dl]
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.group)   # both arenas read before timing
+    err = _max_abs_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"ring_all_to_all_peers != plain at {shape}")
+    del got, want, glob
+    src, dst = ring_exchange._peer_pointer_table(mine, mesh.arena.bases)
+    body = ring_exchange.body_for(src, dst, c * w * 4)
+    full = torch.empty((g, g, c, w), dtype=torch.int32, device="cuda")
+    local_dst = [full[j].data_ptr() for j in range(g)]
+
+    def plain():
+        for i in range(dl):
+            for j in range(g):
+                full[j, lo + i].copy_(mine[i, j])
+
+    times = {}
+    for turn in range(mesh.num_processes):
+        if turn == mesh.rank:
+            times = {
+                "ms": cuda_ms(lambda: ring_exchange._launch(
+                    mine, None, body, src, dst, src_begin=lo)),
+                "local_dst_ms": cuda_ms(lambda: ring_exchange._launch(
+                    mine, None, body, src, local_dst, src_begin=lo)),
+                "plain_ms": cuda_ms(plain, repeats=3, per_repeat=2),
+                "library_ms": cuda_ms(lambda: full[:, lo:lo + dl].copy_(
+                    mine.transpose(0, 1)))}
+            torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+    moved = 2 * mine.numel() * 4
+    return {"shape": list(shape), "body": body, "max_abs_err": err,
+            "bytes_moved": moved, **times,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def multihost_worker(rank: int, port: str, work_dir: str) -> None:
+    """One process of the ``multihost`` phase: prints one line
+    ``MULTIHOST_WORKER {json}`` and exits 0, or raises."""
+    t_start = time.perf_counter()
+    multihost.init_multihost(f"127.0.0.1:{port}", MH_PROCESSES, rank,
+                             local_device_count=MH_LOCAL_SHARDS,
+                             platform="cuda")
+    mesh = multihost.global_mesh("shuffle")
+    dl, g = mesh.local_shards, mesh.num_shards
+    report = {"rank": rank, "init_s": time.perf_counter() - t_start}
+    shapes_seen = {}
+
+    # TeraSort at the main path's size: this process's half of it
+    rpd = DATA_BYTES // 100 // SHARDS
+    t0 = time.perf_counter()
+    (ts_out, ts_counts), launches, shapes = _launches(
+        "multihost/terasort", lambda: multihost.run_multihost_terasort(
+            mesh, "shuffle", rpd, payload_words=24, seed=0))
+    wall = time.perf_counter() - t0
+    per = ts_out.reshape(dl, -1, ts_out.shape[-1])
+    digests, rows = [], 0
+    for d in range(dl):
+        total = int(ts_counts[d].sum())
+        keys = per[d][:total, 0]
+        if not (np.diff(keys.astype(np.int64)) >= 0).all():
+            raise AssertionError(f"process {rank} shard {d} unsorted")
+        digests.append(_digest(per[d][:total]))
+        rows += total
+    del ts_out, per
+    report["terasort"] = {"wall_s": wall, "rows": rows, "digests": digests,
+                          "ring_launches": launches,
+                          "ring_shapes": [[list(k), v]
+                                          for k, v in shapes.items()],
+                          "bodies": PATH_BODIES["multihost/terasort"]}
+    shapes_seen.update(shapes)
+
+    # the mesh-service stage as a two-process job
+    conf = TpuShuffleConf(connect_timeout_ms=5000)
+    addr_file = os.path.join(work_dir, "driver_addr.txt")
+    driver = None
+    if rank == 0:
+        driver = SparkCompatShuffleManager(conf, isDriver=True)
+        handle = driver.native.register_shuffle(
+            MS_SHUFFLE_ID, MS_MAPS, MS_PARTITIONS, MS_PARTITIONER,
+            row_payload_bytes=MS_PAYLOAD)
+        with open(addr_file + ".tmp", "w") as f:
+            f.write("%s:%d" % driver.driverAddr)
+        os.replace(addr_file + ".tmp", addr_file)   # atomic publish
+        driver_addr = driver.driverAddr
+    else:
+        handle = ShuffleHandle(MS_SHUFFLE_ID, MS_MAPS, MS_PARTITIONS,
+                               MS_PAYLOAD, MS_PARTITIONER)
+        deadline = time.monotonic() + 120
+        while not os.path.exists(addr_file):
+            if time.monotonic() > deadline:
+                raise RuntimeError("the driver's address never appeared")
+            time.sleep(0.05)
+        host, p = open(addr_file).read().split(":")
+        driver_addr = (host, int(p))
+    ex = SparkCompatShuffleManager(
+        conf, driverAddr=driver_addr, executorId=f"w{rank}",
+        spill_dir=os.path.join(work_dir, f"spill{rank}"))
+    try:
+        ex.native.executor.wait_for_members(MH_PROCESSES)
+        t0 = time.perf_counter()
+        keys, payload, _ = _mesh_records()
+        per_proc = MS_MAPS // MH_PROCESSES
+        for m in range(rank * per_proc, (rank + 1) * per_proc):
+            rows_m = slice(m * MS_MAP_ROWS, (m + 1) * MS_MAP_ROWS)
+            writer = ex.native.get_writer(handle, m)
+            writer.write_batch(keys[rows_m], payload[rows_m])
+            writer.close()
+        del keys, payload
+        report["commit_s"] = time.perf_counter() - t0
+        runs = {}
+        for name, kw in (("one_shot", {}),
+                         ("rounds", {"rows_per_round": MS_ROWS_PER_ROUND})):
+            before = topology.cross_slice_snapshot()
+            t0 = time.perf_counter()
+            result, launches, shapes = _launches(
+                f"multihost/mesh_{name}",
+                lambda kw=kw: multihost.run_multihost_mesh_reduce(
+                    [ex.native], handle, mesh, out_factor=MS_OUT_FACTOR,
+                    **kw))
+            wall = time.perf_counter() - t0
+            after = topology.cross_slice_snapshot()
+            runs[name] = {
+                "wall_s": wall, "ring_launches": launches,
+                "ring_shapes": [[list(k), v] for k, v in shapes.items()],
+                "bodies": PATH_BODIES[f"multihost/mesh_{name}"],
+                "rows": int(sum(len(k) for k, _, _ in result)),
+                "cross_slice_bytes": after["bytes"] - before["bytes"],
+                "partition_digests": _partition_digests(result)}
+            shapes_seen.update(shapes)
+            del result
+        topo = topology.detect_topology(mesh)
+        report["mesh"] = {"runs": runs, "slices": list(topo.slice_sizes),
+                          "flat": topo.is_flat}
+        report["mesh_profile"] = _trace(
+            lambda: multihost.run_multihost_mesh_reduce(
+                [ex.native], handle, mesh, out_factor=MS_OUT_FACTOR),
+            ("exchange.", "fused."))
+        dist.barrier(group=mesh.group)   # the driver outlives the readers
+    finally:
+        ex.stop()
+        if driver is not None:
+            driver.stop()
+    report["kernel_checks"] = [
+        _peer_shape_check(mesh, shape, 30 + i)
+        for i, shape in enumerate(sorted(shapes_seen))]
+    report["ipc"] = dict(ring_exchange.PEER)
+    report["wall_s"] = time.perf_counter() - t_start
+    multihost.shutdown_multihost()
+    print("MULTIHOST_WORKER " + json.dumps(report), flush=True)
+
+
+def _terasort_reference(cfg: TeraSortConfig) -> list:
+    """Per global shard, the digest of the single-process ``VirtualMesh(8)``
+    TeraSort step's valid rows over both processes' slices (each process
+    generates from seed ``seed * 100_003 + rank``, here seed 0)."""
+    rows = np.concatenate([generate_rows(cfg, MH_LOCAL_SHARDS, seed=p)
+                           for p in range(MH_PROCESSES)])
+    mesh = VirtualMesh(SHARDS)
+    out, counts, overflowed = make_terasort_step(mesh, cfg, "ring")(
+        rows_from_numpy(rows, mesh))
+    if bool(overflowed.any()):
+        raise AssertionError("reference TeraSort overflowed")
+    del rows
+    out = rows_to_numpy(out).reshape(SHARDS, -1, 1 + cfg.payload_words)
+    counts = counts.cpu().numpy()
+    return [_digest(out[d][:int(counts[d].sum())]) for d in range(SHARDS)]
+
+
+def phase_multihost(row: dict, cfg: TeraSortConfig,
+                    want_partitions: dict) -> dict:
+    """The multi-process path (module docstring, phase 12). Returns the
+    kernel's launches per path."""
+    t0 = time.perf_counter()
+    want_ts = _terasort_reference(cfg)
+    reference_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as work:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), MH_WORKER_FLAG,
+             str(rank), port, work], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, env=env, cwd=root)
+            for rank in range(MH_PROCESSES)]
+        outputs = []
+        try:
+            for proc in procs:
+                left = MH_TIMEOUT_S - (time.perf_counter() - t0)
+                outputs.append(proc.communicate(timeout=max(1, left))[0]
+                               .decode(errors="replace"))
+        finally:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+        wall_s = time.perf_counter() - t0
+    reports = []
+    for rank, (proc, text) in enumerate(zip(procs, outputs)):
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("MULTIHOST_WORKER ")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"multihost worker {rank} failed (exit "
+                                 f"{proc.returncode}):\n{text[-4000:]}")
+        reports.append(json.loads(lines[-1][len("MULTIHOST_WORKER "):]))
+
+    got_ts = [dg for r in reports for dg in r["terasort"]["digests"]]
+    if got_ts != want_ts:
+        bad = [i for i, (a, b) in enumerate(zip(got_ts, want_ts)) if a != b]
+        raise AssertionError(f"multihost TeraSort shards {bad} differ from "
+                             "the single-process step")
+    ts_rows = sum(r["terasort"]["rows"] for r in reports)
+    if ts_rows != SHARDS * cfg.rows_per_device:
+        raise AssertionError(f"multihost TeraSort holds {ts_rows} rows")
+    for name in ("one_shot", "rounds"):
+        got = {}
+        for r in reports:
+            got.update({int(k): v for k, v in
+                        r["mesh"]["runs"][name]["partition_digests"].items()})
+        if got != want_partitions:
+            bad = sorted(p for p in want_partitions
+                         if got.get(p) != want_partitions[p])
+            raise AssertionError(f"multihost mesh reduce {name}: "
+                                 f"partitions {bad[:10]} differ from the "
+                                 "oracle")
+        if sum(r["mesh"]["runs"][name]["rows"] for r in reports) != MS_ROWS:
+            raise AssertionError(f"multihost mesh reduce {name} lost rows")
+        if any(r["mesh"]["runs"][name]["cross_slice_bytes"] <= 0
+               for r in reports):
+            raise AssertionError("no cross-slice bytes counted")
+    rounds = min(r["mesh"]["runs"]["rounds"]["ring_launches"]
+                 for r in reports)
+    if rounds < 2:
+        raise AssertionError(f"the rounds reduce ran {rounds} round(s)")
+    if any(r["mesh"]["flat"] or r["mesh"]["slices"] != [MH_LOCAL_SHARDS] * 2
+           for r in reports):
+        raise AssertionError("the global mesh's topology is not two slices")
+
+    launches = {}
+    paths = {"multihost/terasort": lambda r: r["terasort"],
+             "multihost/mesh_one_shot": lambda r: r["mesh"]["runs"][
+                 "one_shot"],
+             "multihost/mesh_rounds": lambda r: r["mesh"]["runs"]["rounds"]}
+    by_shape = collections.defaultdict(dict)
+    for path, pick in paths.items():
+        launches[path] = sum(pick(r)["ring_launches"] for r in reports)
+        if launches[path] == 0:
+            raise AssertionError(f"the {path} path never launched the "
+                                 "kernel")
+        bodies = collections.Counter()
+        for r in reports:
+            bodies.update(pick(r)["bodies"])
+            for shape, n in pick(r)["ring_shapes"]:
+                entry = by_shape[tuple(shape)]
+                entry[path] = entry.get(path, 0) + n
+        PATH_BODIES[path] = dict(bodies)
+    checks = {}
+    for r in reports:
+        for c in r["kernel_checks"]:
+            checks.setdefault(tuple(c["shape"]), []).append(c)
+    if set(checks) != set(by_shape):
+        raise AssertionError("a cross-process shape went unchecked")
+    for shape, per_proc in sorted(checks.items()):
+        err = max(c["max_abs_err"] for c in per_proc)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["by_shape"].append({
+            "shape": list(shape), "processes": MH_PROCESSES,
+            "shared_card": True, "body": per_proc[0]["body"],
+            "bytes_moved": per_proc[0]["bytes_moved"],
+            "ms": max(c["ms"] for c in per_proc),
+            "plain_ms": max(c["plain_ms"] for c in per_proc),
+            "library_ms": max(c["library_ms"] for c in per_proc),
+            "local_dst_ms": max(c["local_dst_ms"] for c in per_proc),
+            "bound_ms": per_proc[0]["bound_ms"],
+            "ms_by_process": [c["ms"] for c in per_proc],
+            "max_abs_err": err, "launches_by_path": by_shape[shape]})
+    emit({"phase": "multihost", "processes": MH_PROCESSES,
+          "local_shards": MH_LOCAL_SHARDS, "wall_s": wall_s,
+          "reference_s": reference_s, "terasort_exact": True,
+          "mesh_exact": True, "mesh_rounds": rounds,
+          "launches_by_path": launches,
+          "workers": [{
+              "rank": r["rank"], "wall_s": r["wall_s"],
+              "init_s": r["init_s"], "commit_s": r["commit_s"],
+              "ipc": r["ipc"],
+              "terasort": {k: v for k, v in r["terasort"].items()
+                           if k != "digests"},
+              "mesh": {name: {k: v for k, v in run.items()
+                              if k != "partition_digests"}
+                       for name, run in r["mesh"]["runs"].items()},
+              "mesh_profile": {k: r["mesh_profile"][k] for k in (
+                  "wall_ms", "device_busy_ms", "idle_share")},
+              "kernel_checks": r["kernel_checks"]} for r in reports]})
+    return launches
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -1704,9 +2069,12 @@ def main() -> None:
                                              generate_s)
     launches.update(mesh_launches)
     launches.update(phase_engine(mesh, row, keys, payload, want))
-    del keys, payload, want
+    del keys, payload
+    want_partitions = _partition_digests(want)
+    del want
     launches.update(phase_engine_q95(mesh, row))
     phase_small_runs(mesh)
+    launches.update(phase_multihost(row, cfg, want_partitions))
     row["launches"] = sum(launches.values())
     row["launches_by_path"] = launches
     row["bodies_by_path"] = PATH_BODIES
@@ -1717,4 +2085,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == MH_WORKER_FLAG:
+        multihost_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

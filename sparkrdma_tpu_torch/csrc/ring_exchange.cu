@@ -35,13 +35,19 @@
 // parameter block (Bases, 2 KB), so a launch needs no device-side
 // pointer array, no host-to-device copy, and can be captured in a CUDA
 // graph. Shard i sends from src[i] + j*block and shard j receives at
-// dst[j] + i*block, so a multi-GPU form with peer pointers over NVLink
-// needs no new signature. A launch runs on the caller's stream, allocates
-// nothing and does not synchronise. An mbarrier wait that outlasts
+// dst[j] + i*block. A launch may cover a range of source shards only:
+// sources [s0, s0 + S) of G, with S source bases and G destination bases
+// (ring_all_to_all_launch_range), so each process of a global mesh
+// launches over its own shards and writes through peer pointers into the
+// other processes' receive buffers, opened from CUDA IPC handles
+// (ring_ipc_*, at the end). The full launch is the range s0 = 0, S = G =
+// D. A launch runs on the caller's stream, allocates nothing and does not
+// synchronise. An mbarrier wait that outlasts
 // kWaitTimeoutNs traps, so a fault in the pipeline ends the kernel with
 // an error instead of hanging the card.
 
 #include <cstdint>
+#include <cstring>
 
 #include <cuda_runtime.h>
 
@@ -61,17 +67,17 @@ constexpr int kUnroll = 4;
 constexpr int kTargetBlocks = 4096;  // ~3-4 waves of 8 blocks per SM
 
 __global__ void __launch_bounds__(kThreads)
-ring_ldst_kernel(const __grid_constant__ Bases bases, int num_shards,
-                 long long block_words) {
+ring_ldst_kernel(const __grid_constant__ Bases bases, int num_src,
+                 int src_begin, long long block_words) {
   const int pair = blockIdx.y;
-  const int dst_shard = pair / num_shards;
-  const int src_shard = pair % num_shards;
+  const int dst_shard = pair / num_src;
+  const int src_local = pair % num_src;
   const int32_t* __restrict__ src =
-      reinterpret_cast<const int32_t*>(bases.src[src_shard]) +
+      reinterpret_cast<const int32_t*>(bases.src[src_local]) +
       static_cast<long long>(dst_shard) * block_words;
   int32_t* __restrict__ dst =
       reinterpret_cast<int32_t*>(bases.dst[dst_shard]) +
-      static_cast<long long>(src_shard) * block_words;
+      static_cast<long long>(src_begin + src_local) * block_words;
 
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -178,29 +184,29 @@ struct Tile {
   uint32_t bytes;
 };
 
-// Work item t: tile k of the block that source shard i sends to
-// destination shard j, pair = j * D + i (as the load/store body's grid).
-__device__ __forceinline__ Tile tile_at(const Bases& bases, int num_shards,
-                                        long long block_bytes,
+// Work item t: tile k of the block that source shard s0 + i sends to
+// destination shard j, pair = j * S + i (as the load/store body's grid).
+__device__ __forceinline__ Tile tile_at(const Bases& bases, int num_src,
+                                        int src_begin, long long block_bytes,
                                         long long tiles_per_block,
                                         uint32_t tile_bytes, long long t) {
   const long long pair = t / tiles_per_block;
   const long long off = (t - pair * tiles_per_block) * tile_bytes;
-  const int dst_shard = static_cast<int>(pair / num_shards);
-  const int src_shard = static_cast<int>(pair % num_shards);
+  const int dst_shard = static_cast<int>(pair / num_src);
+  const int src_local = static_cast<int>(pair % num_src);
   const long long left = block_bytes - off;
   Tile tile;
-  tile.src = reinterpret_cast<const char*>(bases.src[src_shard]) +
+  tile.src = reinterpret_cast<const char*>(bases.src[src_local]) +
              dst_shard * block_bytes + off;
   tile.dst = reinterpret_cast<char*>(bases.dst[dst_shard]) +
-             src_shard * block_bytes + off;
+             (src_begin + src_local) * block_bytes + off;
   tile.bytes = static_cast<uint32_t>(left < tile_bytes ? left : tile_bytes);
   return tile;
 }
 
 __global__ void __launch_bounds__(kTmaThreads)
-ring_tma_kernel(const __grid_constant__ Bases bases, int num_shards,
-                long long block_bytes, long long tiles_per_block,
+ring_tma_kernel(const __grid_constant__ Bases bases, int num_src,
+                int src_begin, long long block_bytes, long long tiles_per_block,
                 long long num_tiles, uint32_t tile_bytes, int stages) {
   extern __shared__ __align__(128) unsigned char stage_buf[];
   __shared__ __align__(8) unsigned long long full[kMaxStages];
@@ -216,7 +222,7 @@ ring_tma_kernel(const __grid_constant__ Bases bases, int num_shards,
       (num_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
   const int ahead = stages - 1;  // loads in flight behind each store
   auto load = [&](long long i) {
-    const Tile tile = tile_at(bases, num_shards, block_bytes,
+    const Tile tile = tile_at(bases, num_src, src_begin, block_bytes,
                               tiles_per_block, tile_bytes,
                               blockIdx.x + i * gridDim.x);
     const int s = static_cast<int>(i % stages);
@@ -231,7 +237,7 @@ ring_tma_kernel(const __grid_constant__ Bases bases, int num_shards,
     // the stage's (i / stages)-th load has landed
     mbar_wait(smem_addr(&full[s]), static_cast<uint32_t>((i / stages) & 1));
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    const Tile tile = tile_at(bases, num_shards, block_bytes,
+    const Tile tile = tile_at(bases, num_src, src_begin, block_bytes,
                               tiles_per_block, tile_bytes,
                               blockIdx.x + i * gridDim.x);
     bulk_store(tile.dst, buf + s * tile_bytes, tile.bytes);
@@ -251,19 +257,20 @@ constexpr int kMaxDevices = 64;
 int g_sms[kMaxDevices];
 int g_smem_allowed[kMaxDevices];
 
-int launch_tma(const Bases& bases, int num_shards, long long block_bytes,
-               int tile_bytes, int stages, int ctas_per_sm,
-               cudaStream_t stream) {
+int launch_tma(const Bases& bases, int num_dst, int src_begin, int num_src,
+               long long block_bytes, int tile_bytes, int stages,
+               int ctas_per_sm, cudaStream_t stream) {
   const long long smem = static_cast<long long>(tile_bytes) * stages;
   if (tile_bytes < 16 || tile_bytes % 16 != 0 || tile_bytes > kMaxTileBytes ||
       stages < 2 || stages > kMaxStages || smem > kMaxSmemBytes ||
       ctas_per_sm < 1 || block_bytes % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int k = 0; k < num_shards; ++k) {
-    if ((bases.src[k] | bases.dst[k]) & 15) {
-      return static_cast<int>(cudaErrorMisalignedAddress);
-    }
+  for (int k = 0; k < num_src; ++k) {
+    if (bases.src[k] & 15) return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  for (int k = 0; k < num_dst; ++k) {
+    if (bases.dst[k] & 15) return static_cast<int>(cudaErrorMisalignedAddress);
   }
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -286,29 +293,45 @@ int launch_tma(const Bases& bases, int num_shards, long long block_bytes,
   }
   const long long tiles_per_block = (block_bytes + tile_bytes - 1) / tile_bytes;
   const long long num_tiles =
-      static_cast<long long>(num_shards) * num_shards * tiles_per_block;
+      static_cast<long long>(num_dst) * num_src * tiles_per_block;
   long long grid = static_cast<long long>(ctas_per_sm) * g_sms[dev];
   if (grid > num_tiles) grid = num_tiles;
   ring_tma_kernel<<<static_cast<unsigned>(grid), kTmaThreads,
                     static_cast<size_t>(smem), stream>>>(
-      bases, num_shards, block_bytes, tiles_per_block, num_tiles,
+      bases, num_src, src_begin, block_bytes, tiles_per_block, num_tiles,
       static_cast<uint32_t>(tile_bytes), stages);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_ldst(const Bases& bases, int num_shards, long long block_bytes,
-                cudaStream_t stream) {
+int launch_ldst(const Bases& bases, int num_dst, int src_begin, int num_src,
+                long long block_bytes, cudaStream_t stream) {
   const long long block_words = block_bytes / 4;
-  const long long pairs = static_cast<long long>(num_shards) * num_shards;
+  const long long pairs = static_cast<long long>(num_dst) * num_src;
   const long long per_block = static_cast<long long>(kThreads) * kUnroll * 4;
   long long chunks = (block_words + per_block - 1) / per_block;
   const long long cap = kTargetBlocks / pairs > 0 ? kTargetBlocks / pairs : 1;
   if (chunks > cap) chunks = cap;
   if (chunks < 1) chunks = 1;
   dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(pairs));
-  ring_ldst_kernel<<<grid, kThreads, 0, stream>>>(bases, num_shards,
+  ring_ldst_kernel<<<grid, kThreads, 0, stream>>>(bases, num_src, src_begin,
                                                   block_words);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* bases, int num_dst, int src_begin, int num_src,
+           long long block_bytes, int use_tma, int tile_bytes, int stages,
+           int ctas_per_sm, void* stream) {
+  if (num_dst < 1 || num_dst > kMaxShards || num_src < 1 ||
+      num_src > kMaxShards || src_begin < 0 ||
+      src_begin + num_src > num_dst || block_bytes < 4 ||
+      block_bytes % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Bases& b = *static_cast<const Bases*>(bases);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return use_tma ? launch_tma(b, num_dst, src_begin, num_src, block_bytes,
+                              tile_bytes, stages, ctas_per_sm, s)
+                 : launch_ldst(b, num_dst, src_begin, num_src, block_bytes, s);
 }
 
 }  // namespace
@@ -325,19 +348,80 @@ extern "C" int ring_all_to_all_launch(const void* bases, int num_shards,
                                       long long block_bytes, int use_tma,
                                       int tile_bytes, int stages,
                                       int ctas_per_sm, void* stream) {
-  if (num_shards < 1 || num_shards > kMaxShards || block_bytes < 4 ||
-      block_bytes % 4 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Bases& b = *static_cast<const Bases*>(bases);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return use_tma ? launch_tma(b, num_shards, block_bytes, tile_bytes, stages,
-                              ctas_per_sm, s)
-                 : launch_ldst(b, num_shards, block_bytes, s);
+  return launch(bases, num_shards, 0, num_shards, block_bytes, use_tma,
+                tile_bytes, stages, ctas_per_sm, stream);
+}
+
+// The launch over source shards [src_begin, src_begin + num_src) of
+// num_dst: bases holds num_src source bases (src[k] is shard src_begin +
+// k's send buffer, its num_dst blocks one after another) and num_dst
+// destination bases (dst[j] is shard j's receive buffer, num_dst blocks,
+// block i from source shard i); a destination base may be a peer
+// process's buffer opened by ring_ipc_open. Block (i, j) goes to
+// dst[j] + i*block_bytes. Otherwise as ring_all_to_all_launch.
+extern "C" int ring_all_to_all_launch_range(const void* bases, int num_dst,
+                                            int src_begin, int num_src,
+                                            long long block_bytes,
+                                            int use_tma, int tile_bytes,
+                                            int stages, int ctas_per_sm,
+                                            void* stream) {
+  return launch(bases, num_dst, src_begin, num_src, block_bytes, use_tma,
+                tile_bytes, stages, ctas_per_sm, stream);
 }
 
 extern "C" int ring_all_to_all_max_shards() { return kMaxShards; }
 
 extern "C" const char* ring_all_to_all_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// ---- peer buffers (CUDA IPC) -------------------------------------------
+//
+// A receive buffer that other processes write into is allocated here with
+// cudaMalloc, outside PyTorch's caching allocator: the legacy IPC API
+// exports only cudaMalloc memory (not the caching allocator's expandable
+// segments), and an export names a whole allocation, so a buffer of its
+// own has offset 0. Each returns a cudaError_t (0 = success).
+
+extern "C" int ring_ipc_handle_bytes() {
+  return static_cast<int>(sizeof(cudaIpcMemHandle_t));
+}
+
+extern "C" int ring_ipc_alloc(long long bytes, void** ptr) {
+  if (bytes < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaMalloc(ptr, static_cast<size_t>(bytes)));
+}
+
+extern "C" int ring_ipc_free(void* ptr) {
+  return static_cast<int>(cudaFree(ptr));
+}
+
+// The IPC handle of the allocation at `base` (from ring_ipc_alloc) into
+// handle_out (ring_ipc_handle_bytes() bytes), and the offset of `ptr`
+// inside it.
+extern "C" int ring_ipc_export(const void* base, const void* ptr,
+                               void* handle_out, long long* offset_out) {
+  const char* b = static_cast<const char*>(base);
+  const char* p = static_cast<const char*>(ptr);
+  if (p < b) return static_cast<int>(cudaErrorInvalidValue);
+  cudaIpcMemHandle_t handle;
+  const cudaError_t err =
+      cudaIpcGetMemHandle(&handle, const_cast<void*>(base));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  memcpy(handle_out, &handle, sizeof(handle));
+  *offset_out = static_cast<long long>(p - b);
+  return 0;
+}
+
+// Map a peer process's allocation from its handle; *ptr is its base (add
+// the exporter's offset). Peer access is enabled lazily.
+extern "C" int ring_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+extern "C" int ring_ipc_close(void* ptr) {
+  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
 }

@@ -31,8 +31,9 @@ Port of ``sparkrdma_tpu/engine.py``: the same scheduler, with ``mesh=`` a
 ``parallel.mesh.VirtualMesh`` (D shards on one card) whose mesh-mode
 stages ride the port's ``device_plane`` and ``mesh_service``; no call
 there takes an axis name. Distributed mesh mode (``dist_mesh_axis``, one
-collective across executor processes) needs ``parallel/multihost.py``,
-which is not ported yet, so asking for it raises ``NotImplementedError``.
+collective across executor processes) runs the port's
+``parallel/multihost.py``; each executor process joins its group with
+``multihost.init_multihost`` at startup.
 """
 
 from __future__ import annotations
@@ -156,6 +157,30 @@ class TaskContext:
         return self.manager.getReader(handle, self.task_id, self.task_id + 1)
 
 
+def _make_dist_collective(handle, axis: str, impl: str,
+                          rows_per_round: int = 0):
+    """The closure shipped to every executor process in distributed mesh
+    mode: stage local spills, enter the global-mesh exchange (in bounded
+    device rounds when ``rows_per_round`` is set), cache the received
+    partitions in this process, report ownership."""
+
+    def collective(ctx, task_id, _h=handle, _axis=axis, _impl=impl,
+                   _rpr=rows_per_round):
+        from sparkrdma_tpu_torch.parallel.multihost import (
+            global_mesh, process_count, process_index,
+            run_multihost_mesh_reduce)
+        from sparkrdma_tpu_torch.shuffle import dist_cache
+
+        mesh = global_mesh(_axis)
+        results = run_multihost_mesh_reduce(
+            [ctx.manager.native], _h, mesh, axis_name=_axis, impl=_impl,
+            rows_per_round=_rpr)
+        parts = dist_cache.store(_h.shuffle_id, results)
+        return (process_index(), process_count(), parts)
+
+    return collective
+
+
 class DAGEngine:
     """Schedules stage DAGs over a cluster of compat shuffle managers.
 
@@ -231,9 +256,12 @@ class DAGEngine:
         self.dist_rows_per_round = dist_rows_per_round
         self.dist_fail_grace_s = dist_fail_grace_s
         if dist_mesh_axis is not None:
-            raise NotImplementedError(
-                "distributed mesh mode (dist_mesh_axis) is not ported: it "
-                "needs parallel/multihost.py (ROADMAP.md, queue A, item 4)")
+            if mesh is not None:
+                raise ValueError("mesh and dist_mesh_axis are exclusive")
+            if not all(self._is_remote(ex) for ex in executors):
+                raise ValueError(
+                    "dist_mesh_axis requires every executor to be a "
+                    "RemoteExecutor (one per jax.distributed process)")
         self._dist_lock = threading.RLock()
         self._dist_owner: Dict[int, Dict[int, object]] = {}
         # Speculative execution (Spark's spark.speculation): once half a
@@ -568,6 +596,11 @@ class DAGEngine:
     def _run_stage_tasks(self, stage) -> List[object]:
         """All of a stage's tasks, up to max_parallel_tasks in flight
         (ordered results)."""
+        if self.dist_mesh_axis is not None:
+            for p in stage.parents:
+                h = self._handles.get(p.stage_id)
+                if h is not None:
+                    self._dist_mesh_reduce(h)
         if self.max_parallel_tasks <= 1 or stage.num_tasks <= 1:
             return [self._run_task(stage, t, mgr=self._preferred(stage, t))
                     for t in range(stage.num_tasks)]
@@ -858,6 +891,135 @@ class DAGEngine:
             if ex is not None and getattr(ex, "alive", True):
                 return ex
         return None
+
+    def _dist_mesh_reduce(self, handle) -> None:
+        """One global-mesh collective for ``handle``'s shuffle across all
+        executor processes (memoized per shuffle; serialized — see
+        __init__). Every process stages its committed local spills and
+        enters ``run_multihost_mesh_reduce`` together; a FetchFailed is
+        raised consistently group-wide, so recovery + a collective
+        re-entry is an ordinary stage retry."""
+        from concurrent.futures import ThreadPoolExecutor
+        from dataclasses import replace
+
+        with self._dist_lock:
+            if handle.shuffle_id in self._dist_owner:
+                return
+            fn = _make_dist_collective(replace(handle, combiner=None),
+                                       self.dist_mesh_axis, self.mesh_impl,
+                                       self.dist_rows_per_round)
+            for attempt in range(self.max_stage_retries + 1):
+                # the collective needs EVERY jax process: excluding a
+                # dead-marked proxy would strand the rest of the group in
+                # the allgather until the task timeout — fail fast with
+                # the real problem instead
+                dead = [ex for ex in self.executors
+                        if not getattr(ex, "alive", True)]
+                if dead:
+                    raise RuntimeError(
+                        f"distributed mesh group incomplete: "
+                        f"{len(dead)}/{len(self.executors)} executors "
+                        "marked dead; the collective needs every jax "
+                        "process — restart the process group")
+                execs = list(self.executors)
+                results = {}
+                pool = ThreadPoolExecutor(max_workers=len(execs),
+                                          thread_name_prefix="dist-mesh")
+                try:
+                    clean = self._dist_collect(pool, fn, execs, handle,
+                                               attempt, results)
+                except BaseException:
+                    # unexpected escape (KeyboardInterrupt, tracer error):
+                    # never leave non-daemon threads joined-at-exit behind
+                    pool.shutdown(wait=False, cancel_futures=True)
+                    raise
+                failure, hard = clean
+                if hard is not None:
+                    # don't join threads blocked on wedged survivors
+                    # (shutdown(wait=True) would stall the driver for
+                    # their full task budget); they unwind on their own
+                    # RPC timeout
+                    pool.shutdown(wait=False, cancel_futures=True)
+                    lost_ex, lost_e = hard
+                    raise RuntimeError(
+                        f"executor "
+                        f"{lost_ex.manager_id.executor_id.executor} lost "
+                        f"mid-collective ({lost_e!r}); the distributed "
+                        "mesh group cannot recover around a dead jax "
+                        "process — restart the process group"
+                    ) from lost_e
+                pool.shutdown(wait=True)
+                if failure is None:
+                    owner: Dict[int, object] = {}
+                    seen: Dict[int, object] = {}
+                    nproc = 0
+                    for ex, (pidx, np_, parts) in results.items():
+                        nproc = np_
+                        if pidx in seen:
+                            raise RuntimeError(
+                                f"jax process {pidx} served by two engine "
+                                "executors — distributed mesh mode needs "
+                                "exactly one executor per process")
+                        seen[pidx] = ex
+                        for part in parts:
+                            owner[part] = ex
+                    if len(seen) != nproc:
+                        raise RuntimeError(
+                            f"collective covered {len(seen)}/{nproc} jax "
+                            "processes; every process must host exactly "
+                            "one engine executor")
+                    self._dist_owner[handle.shuffle_id] = owner
+                    return
+                if attempt >= self.max_stage_retries:
+                    raise failure
+                log.warning("distributed mesh reduce of shuffle %d: %s; "
+                            "recovering (%d)", handle.shuffle_id, failure,
+                            attempt + 1)
+                self._recover_shuffle(failure)
+
+    def _dist_collect(self, pool, fn, execs, handle, attempt, results):
+        """Dispatch ``fn`` to every executor and collect in COMPLETION
+        order: a peer lost mid-collective raises within its
+        connect/transport window while survivors block in the allgather —
+        the loss must surface first or the driver waits a full task
+        budget on a wedged survivor and blames IT.
+
+        Returns ``(failure, hard)``: ``failure`` is a group-consistent
+        FetchFailedError (recoverable via stage retry), ``hard`` is
+        ``(executor, exc)`` for a peer lost/broken mid-collective (the
+        jax.distributed group cannot re-form around the hole).
+        """
+        from concurrent.futures import as_completed, wait as fwait
+
+        failure = None
+        hard = None
+        with self.tracer.span("engine.dist_reduce", "engine",
+                              shuffle=handle.shuffle_id, attempt=attempt):
+            futs = {pool.submit(ex.run_result_task, fn, [], 0): ex
+                    for ex in execs}
+            for f in as_completed(futs):
+                ex = futs[f]
+                try:
+                    res, _deltas = f.result()
+                    results[ex] = res
+                except FetchFailedError as e:
+                    failure = e
+                except Exception as e:
+                    # ExecutorLostError / task error: the process is gone
+                    # or broken mid-dispatch. alive is NOT forced false
+                    # here: transport-flavored losses already cleared it
+                    # (tasks.py), while timeout-flavored ones deliberately
+                    # keep the process alive so job cleanup still reaches
+                    # its shuffle data.
+                    hard = (ex, e)
+                    break
+            if hard is not None:
+                # survivors can never complete; grant a short grace (not
+                # each future's full task budget) for any in-flight
+                # completions, then fail the group
+                fwait([f for f in futs if not f.done()],
+                      timeout=self.dist_fail_grace_s)
+        return failure, hard
 
     def _mesh_read(self, handle, partition: int) -> Optional[CompatReader]:
         """A reader over ``partition`` served from the collective reduce,

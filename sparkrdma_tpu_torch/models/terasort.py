@@ -45,7 +45,9 @@ class TeraSortConfig:
 
 def make_terasort_step(mesh: VirtualMesh, cfg: TeraSortConfig,
                        impl: str = "auto"):
-    """The one-round TeraSort step over ``mesh``.
+    """The one-round TeraSort step over ``mesh`` (a ``VirtualMesh``, or a
+    ``GlobalMesh``: then ``D`` is the process's ``local_shards`` and the
+    counts are ``[Dl, G]``).
 
     Takes ``rows: int32[D, rows_per_device, 1+P]`` (column 0 is the
     key); returns ``(sorted_rows [D, out_cap, 1+P], recv_counts[D, D],

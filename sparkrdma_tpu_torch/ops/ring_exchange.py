@@ -18,19 +18,32 @@ A launch passes the D source and D destination bases to the kernel by
 value (``_Bases``, a struct in the kernel's parameter block), so it
 makes no host-to-device copy and no host tensor, and can be captured
 in a CUDA graph.
+
+Across processes (a ``parallel.mesh.GlobalMesh``), ``ring_all_to_all_peers``
+is the wrapper: each process launches the kernel over its own source
+shards only, and the destination bases are the receive arenas of every
+process (``PeerArena``), the peers' opened from CUDA IPC handles. That is
+the port's counterpart of the Pallas kernel's remote DMA into a
+neighbour's buffer. On the CPU it takes ``ring_all_to_all_peers_plain``,
+the same block moves done by the process group's ``all_to_all_single``.
+``PEER`` holds the IPC bookkeeping (arena growths, the seconds spent
+opening peers' handles).
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 LAUNCHES = 0
 SHAPES: Dict[Tuple[int, ...], int] = {}
 BODIES: Dict[str, int] = {}
+PEER = {"arena_growths": 0, "ipc_opens": 0, "ipc_open_s": 0.0}
 _KERNEL = "ring_exchange"
 
 MAX_SHARDS = 128          # kMaxShards in csrc/ring_exchange.cu
@@ -102,6 +115,25 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.ring_all_to_all_launch.restype = ctypes.c_int
+        lib.ring_all_to_all_launch_range.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.ring_all_to_all_launch_range.restype = ctypes.c_int
+        lib.ring_ipc_handle_bytes.argtypes = []
+        lib.ring_ipc_handle_bytes.restype = ctypes.c_int
+        lib.ring_ipc_alloc.argtypes = [ctypes.c_longlong,
+                                       ctypes.POINTER(ctypes.c_void_p)]
+        lib.ring_ipc_open.argtypes = [ctypes.c_char_p,
+                                      ctypes.POINTER(ctypes.c_void_p)]
+        lib.ring_ipc_export.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_longlong)]
+        for name in ("ring_ipc_free", "ring_ipc_close"):
+            getattr(lib, name).argtypes = [ctypes.c_void_p]
+        for name in ("ring_ipc_alloc", "ring_ipc_free", "ring_ipc_export",
+                     "ring_ipc_open", "ring_ipc_close"):
+            getattr(lib, name).restype = ctypes.c_int
         lib.ring_all_to_all_max_shards.argtypes = []
         lib.ring_all_to_all_max_shards.restype = ctypes.c_int
         lib.ring_all_to_all_error_string.argtypes = [ctypes.c_int]
@@ -113,24 +145,33 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _launch(blocks: torch.Tensor, out: torch.Tensor, body: str,
+def _launch(blocks: torch.Tensor, out: Optional[torch.Tensor], body: str,
             src: Sequence[int], dst: Sequence[int],
             tile_bytes: int = TMA_TILE_BYTES, stages: int = TMA_STAGES,
-            ctas_per_sm: int = TMA_CTAS_PER_SM) -> None:
+            ctas_per_sm: int = TMA_CTAS_PER_SM,
+            src_begin: Optional[int] = None) -> None:
+    """One launch with the given bases: the full launch (``src_begin``
+    None, ``len(src) == len(dst)``), or the range launch over sources
+    ``[src_begin, src_begin + len(src))`` of ``len(dst)``."""
     lib = _library()
     bases = getattr(_per_thread, "bases", None)
     if bases is None:
         bases = _per_thread.bases = _Bases()
-    d = len(src)
-    bases.src[:d] = src
-    bases.dst[:d] = dst
+    bases.src[:len(src)] = src
+    bases.dst[:len(dst)] = dst
     block_bytes = blocks.shape[2] * blocks.shape[3] * blocks.element_size()
     # the current stream's raw handle, without the Stream object that
     # torch.cuda.current_stream builds (several µs a launch)
     stream = torch._C._cuda_getCurrentRawStream(blocks.get_device())
-    err = lib.ring_all_to_all_launch(
-        ctypes.addressof(bases), d, block_bytes, int(body == "tma"),
-        tile_bytes, stages, ctas_per_sm, stream)
+    if src_begin is None:
+        err = lib.ring_all_to_all_launch(
+            ctypes.addressof(bases), len(src), block_bytes,
+            int(body == "tma"), tile_bytes, stages, ctas_per_sm, stream)
+    else:
+        err = lib.ring_all_to_all_launch_range(
+            ctypes.addressof(bases), len(dst), src_begin, len(src),
+            block_bytes, int(body == "tma"), tile_bytes, stages,
+            ctas_per_sm, stream)
     if err != 0:
         raise RuntimeError(
             f"ring_all_to_all launch failed ({body} body): "
@@ -168,4 +209,205 @@ def ring_all_to_all(blocks: torch.Tensor) -> torch.Tensor:
     shape = tuple(blocks.shape)
     SHAPES[shape] = SHAPES.get(shape, 0) + 1
     BODIES[body] = BODIES.get(body, 0) + 1
+    return out
+
+
+# -- across processes: the range launch into peers' receive arenas ---------
+
+def _peer_pointer_table(blocks: torch.Tensor, arena_bases: Sequence[int]
+                        ) -> Tuple[List[int], List[int]]:
+    """The range launch's bases for contiguous ``blocks`` of shape ``[Dl,
+    G, C, W]`` (this process's ``Dl`` source shards, one block per
+    destination) and the receive arenas ``arena_bases`` of the ``P = G /
+    Dl`` processes, each ``[Dl, G, C, W]``: local source ``i`` sends from
+    ``src[i]``, ``i * G*C*W*itemsize`` bytes past the start of
+    ``blocks``, and global shard ``j`` receives at ``dst[j]``, shard ``j
+    % Dl`` of process ``j // Dl``'s arena. The kernel adds ``j * block``
+    to a source base and ``(s0 + i) * block`` to a destination base.
+    Raises past ``MAX_SHARDS`` shards."""
+    dl, g, c, w = blocks.shape
+    if g > MAX_SHARDS:
+        raise ValueError(f"at most {MAX_SHARDS} shards (the kernel's "
+                         f"pointer table), got {g}")
+    if g != dl * len(arena_bases):
+        raise ValueError(f"{len(arena_bases)} arenas of {dl} shards do not "
+                         f"make {g} destinations")
+    shard_bytes = g * c * w * blocks.element_size()
+    src0 = blocks.data_ptr()
+    return ([src0 + i * shard_bytes for i in range(dl)],
+            [arena_bases[j // dl] + (j % dl) * shard_bytes
+             for j in range(g)])
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: "
+                           + _library().ring_all_to_all_error_string(
+                               err).decode())
+
+
+class _DeviceBuffer:
+    """``nbytes`` of device memory from ``cudaMalloc`` (outside PyTorch's
+    caching allocator), seen by ``torch.as_tensor`` through
+    ``__cuda_array_interface__``; freed when the last tensor over it
+    goes."""
+
+    def __init__(self, nbytes: int):
+        ptr = ctypes.c_void_p()
+        _check(_library().ring_ipc_alloc(nbytes, ctypes.byref(ptr)),
+               f"cudaMalloc of a {nbytes}-byte receive arena")
+        self.ptr = int(ptr.value)
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes // 4,), "typestr": "<i4",
+            "data": (self.ptr, False), "version": 2}
+
+    def __del__(self):
+        if _lib is not None:
+            _lib.ring_ipc_free(ctypes.c_void_p(self.ptr))
+
+
+class PeerArena:
+    """This process's receive arena and the opened arenas of the other
+    processes of ``group`` (rank ``rank`` of ``world``) on ``device``.
+
+    Every process grows its arena in lockstep (callers agree on the size
+    from the all-gathered count matrix), exports it and opens its peers'
+    once per growth; the opened pointers are cached until the next one.
+    A handle that cannot be opened raises."""
+
+    def __init__(self, group, rank: int, world: int, device: torch.device):
+        self.group, self.rank, self.world = group, rank, world
+        self.device = device
+        self.nbytes = 0
+        self.bases: List[int] = []
+        self._local: Optional[torch.Tensor] = None
+        self._opened: List[int] = []
+
+    def _close_peers(self) -> None:
+        lib = _library()
+        for ptr in self._opened:
+            _check(lib.ring_ipc_close(ctypes.c_void_p(ptr)),
+                   "cudaIpcCloseMemHandle")
+        self._opened = []
+
+    def ensure(self, nbytes: int) -> None:
+        """Hold at least ``nbytes`` in every process's arena. Collective
+        over ``group`` when it grows: every process must call it with the
+        same ``nbytes``."""
+        if nbytes <= self.nbytes:
+            return
+        lib = _library()
+        torch.cuda.synchronize(self.device)  # reads of the old arena done
+        self._close_peers()
+        dist.barrier(group=self.group)       # no peer maps it any more
+        self._local = None
+        self.bases = []
+        size = -(-nbytes // (2 << 20)) * (2 << 20)   # whole 2 MiB pages
+        buf = _DeviceBuffer(size)
+        self._local = torch.as_tensor(buf, device=self.device)
+        handle = ctypes.create_string_buffer(lib.ring_ipc_handle_bytes())
+        offset = ctypes.c_longlong()
+        _check(lib.ring_ipc_export(ctypes.c_void_p(buf.ptr),
+                                   ctypes.c_void_p(buf.ptr), handle,
+                                   ctypes.byref(offset)),
+               "cudaIpcGetMemHandle")
+        shared: List[Optional[tuple]] = [None] * self.world
+        dist.all_gather_object(shared, (handle.raw, offset.value),
+                               group=self.group)
+        t0 = time.perf_counter()
+        bases = []
+        for peer, (raw, off) in enumerate(shared):
+            if peer == self.rank:
+                bases.append(buf.ptr)
+                continue
+            ptr = ctypes.c_void_p()
+            _check(lib.ring_ipc_open(raw, ctypes.byref(ptr)),
+                   f"cudaIpcOpenMemHandle of process {peer}'s arena")
+            self._opened.append(int(ptr.value))
+            bases.append(int(ptr.value) + off)
+        PEER["ipc_open_s"] += time.perf_counter() - t0
+        PEER["ipc_opens"] += len(self._opened)
+        PEER["arena_growths"] += 1
+        self.bases = bases
+        self.nbytes = size
+
+    def local(self, shape) -> torch.Tensor:
+        """This process's arena as an int32 tensor of ``shape``."""
+        n = 1
+        for s in shape:
+            n *= s
+        return self._local[:n].view(shape)
+
+    def close(self) -> None:
+        """Unmap the peers' arenas and drop this one (collective)."""
+        if self.nbytes:
+            torch.cuda.synchronize(self.device)
+            self._close_peers()
+            dist.barrier(group=self.group)
+        self._local = None
+        self.bases = []
+        self.nbytes = 0
+
+
+def ring_all_to_all_peers_plain(blocks: torch.Tensor, group,
+                                num_processes: int) -> torch.Tensor:
+    """The cross-process move in plain PyTorch: ``blocks [Dl, G, C,
+    ...]`` (this process's ``Dl`` source shards, block ``[i, j]`` bound
+    for global shard ``j``) -> ``out [Dl, G, C, ...]``, ``out[e, i]`` the
+    block global source ``i`` sent to this process's shard ``e``: one
+    equal-split ``all_to_all_single`` over ``group``."""
+    dl, g = blocks.shape[:2]
+    rest = tuple(blocks.shape[2:])
+    send = blocks.reshape((dl, num_processes, dl) + rest).transpose(
+        0, 1).contiguous()              # [dest process, src, dest local]
+    recv = torch.empty_like(send)       # [src process, src, dest local]
+    dist.all_to_all_single(recv, send, group=group)
+    perm = (2, 0, 1) + tuple(range(3, recv.dim()))
+    return recv.permute(perm).reshape((dl, g) + rest)
+
+
+def ring_all_to_all_peers(blocks: torch.Tensor, mesh) -> torch.Tensor:
+    """All-to-all of per-destination blocks across the processes of
+    ``mesh`` (a ``GlobalMesh``): ``blocks: int32[Dl, G, C, W]``, this
+    process's source shards. Returns ``[Dl, G, C, W]`` with ``out[e, i]``
+    the block global shard ``i`` sent to local shard ``e``.
+
+    On ``cuda`` the result is a view of the mesh's receive arena, valid
+    until the next exchange over the mesh. Collective: every process of
+    the mesh calls it with the same shape. The exchange is fenced by the
+    control group: a barrier before the launch (every arena allocated
+    and no longer read), the launch over this process's sources into
+    every arena, a stream synchronisation and a barrier after it (every
+    write landed)."""
+    global LAUNCHES
+    if not blocks.is_cuda:
+        if blocks.device.type == "cpu":
+            return ring_all_to_all_peers_plain(blocks, mesh.group,
+                                               mesh.num_processes)
+        raise ValueError(f"ring_all_to_all_peers runs on cuda or cpu, not "
+                         f"{blocks.device}")
+    if blocks.dtype != torch.int32:
+        raise TypeError(f"ring_all_to_all_peers moves int32 words, got "
+                        f"{blocks.dtype}")
+    dl, g = mesh.local_shards, mesh.num_shards
+    if blocks.dim() != 4 or tuple(blocks.shape[:2]) != (dl, g):
+        raise ValueError(f"blocks must be [{dl}, {g}, C, W], got "
+                         f"{tuple(blocks.shape)}")
+    if not blocks.is_contiguous():
+        raise ValueError("blocks must be contiguous")
+    arena = mesh.arena
+    arena.ensure(max(4, blocks.numel() * 4))
+    out = arena.local(tuple(blocks.shape))
+    src, dst = _peer_pointer_table(blocks, arena.bases)
+    torch.cuda.current_stream(blocks.device).synchronize()
+    dist.barrier(group=mesh.group)
+    if blocks.numel():
+        body = body_for(src, dst, blocks.shape[2] * blocks.shape[3] * 4)
+        _launch(blocks, None, body, src, dst, src_begin=mesh.first_shard)
+        LAUNCHES += 1
+        shape = tuple(blocks.shape)
+        SHAPES[shape] = SHAPES.get(shape, 0) + 1
+        BODIES[body] = BODIES.get(body, 0) + 1
+    torch.cuda.current_stream(blocks.device).synchronize()
+    dist.barrier(group=mesh.group)
     return out

@@ -50,8 +50,8 @@ from sparkrdma_tpu_torch.ops.partition import uniform_splitters
 from sparkrdma_tpu_torch.parallel import topology as topology_mod
 from sparkrdma_tpu_torch.parallel.exchange import (
     bucket_quota,
+    exchange_over,
     group_by_destination,
-    ragged_exchange_shard,
     record_exchange,
     resolve_transport,
 )
@@ -347,7 +347,10 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
                     out_factor: int = 2, impl: str = "auto",
                     sort_mode: str = "gather", key_words: int = 1,
                     partition: str = "range") -> Callable:
-    """Build the fused partition+exchange+local-sort step over ``mesh``.
+    """Build the fused partition+exchange+local-sort step over ``mesh``
+    (a ``VirtualMesh``, or a ``GlobalMesh``: then ``D`` below is the
+    process's ``local_shards``, the counts are ``[Dl, G]``, and only the
+    exchange crosses processes).
 
     ``partition`` selects how rows find their destination shard:
 
@@ -381,6 +384,7 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
         raise ValueError("range partitioning is defined on single-word "
                          "u32 keys")
     n = mesh.num_shards
+    local = mesh.local_shards   # this process's shards (all, on one card)
     impl = resolve_transport(mesh, impl)
     write_back = key_words == 1
     splitters = (uniform_splitters(n, mesh.device) if partition == "range"
@@ -398,11 +402,11 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
 
     def exchange_and_sort(grouped, counts, slot_rows=None):
         output = torch.zeros(
-            (n, grouped.shape[1] * out_factor, row_words),
+            (local, grouped.shape[1] * out_factor, row_words),
             dtype=grouped.dtype, device=grouped.device)
         with record_function("fused.exchange"):
-            received, recv_counts, _, overflowed = ragged_exchange_shard(
-                grouped, counts, output=output, impl=impl,
+            received, recv_counts, _, overflowed = exchange_over(
+                mesh, grouped, counts, output=output, impl=impl,
                 slot_rows=slot_rows)
         with record_function("fused.receive_sort"):
             sorted_rows = sort_received(received, recv_counts.sum(dim=1))
@@ -432,9 +436,9 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
             # per-destination counts: D-1 binary searches on sorted keys
             with record_function("fused.counts"):
                 bounds = torch.searchsorted(
-                    sorted_keys, splitters.expand(n, n - 1).contiguous())
-                edge = torch.full((n, 1), rows.shape[1], dtype=bounds.dtype,
-                                  device=bounds.device)
+                    sorted_keys, splitters.expand(local, n - 1).contiguous())
+                edge = torch.full((local, 1), rows.shape[1],
+                                  dtype=bounds.dtype, device=bounds.device)
                 bounds = torch.cat([torch.zeros_like(edge), bounds, edge],
                                    dim=1)
                 counts = torch.diff(bounds, dim=1).to(torch.int32)

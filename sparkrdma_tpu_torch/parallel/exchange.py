@@ -23,9 +23,19 @@ Transports (``impl``):
   (the ``lax.all_to_all`` of the JAX package).
 * ``"gather"`` — direct compaction of each source's segment, the
   semantics of the JAX ``all_gather`` + mask-compaction oracle.
-* ``"native"`` — ``lax.ragged_all_to_all`` in the JAX package. It has no
-  single-card meaning and waits for the multi-process port; asking for it
-  raises ``NotImplementedError``.
+* ``"native"`` — ``lax.ragged_all_to_all`` in the JAX package: here a
+  ragged ``all_to_all_single`` over a ``GlobalMesh``'s process group. On
+  a ``VirtualMesh`` it has no meaning and raises ``NotImplementedError``.
+
+Over a ``GlobalMesh`` (several processes, ``parallel/multihost.py``;
+``ragged_exchange_global``) each process passes its own ``[Dl, cap,
+...]`` shards and ``[Dl, G]`` counts; the ``[G, G]`` count matrix is
+all-gathered over the control group (or handed in by a caller that
+counted on the host), ``ring`` writes through CUDA IPC peer pointers into
+the other processes' receive arenas (``ops.ring_exchange.
+ring_all_to_all_peers``), and ``dense``, ``gather`` and ``native`` run the
+process group's collectives, which on ``cuda`` need a group whose backend
+takes cuda tensors (NCCL, one card per rank).
 
 The chunked exchange (``chunked_exchange`` and its builders, at the end)
 moves arbitrarily skewed traffic in bounded rounds of at most ``quota``
@@ -43,8 +53,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from sparkrdma_tpu_torch.ops.ring_exchange import ring_all_to_all
-from sparkrdma_tpu_torch.parallel.mesh import take_rows
+import torch.distributed as dist
+
+from sparkrdma_tpu_torch.ops.ring_exchange import (
+    ring_all_to_all,
+    ring_all_to_all_peers,
+    ring_all_to_all_peers_plain,
+)
+from sparkrdma_tpu_torch.parallel.mesh import GlobalMesh, take_rows
 from sparkrdma_tpu_torch.utils.u32 import rows_from_numpy
 
 # Host-side dispatch tally for the data plane: callers that launch an
@@ -133,22 +149,36 @@ def _pack_by_source(blocks: torch.Tensor, recv_counts: torch.Tensor,
 def resolve_impl(device, impl: str = "auto") -> str:
     """``auto`` -> ``ring`` on ``cuda`` and ``gather`` on the CPU (as the
     JAX package resolves ``auto`` to ``gather`` off the TPU). ``device``
-    is a ``torch.device`` or a ``VirtualMesh``.
+    is a ``torch.device``, a ``VirtualMesh`` or a ``GlobalMesh``.
 
     On one card every transport is a device-local copy; ``ring`` is the
     one with a kernel of its own, so it is the card's default. ``native``
-    (``lax.ragged_all_to_all``) has no single-card meaning and raises
-    ``NotImplementedError`` until the multi-process port."""
+    (``lax.ragged_all_to_all``) needs a ``GlobalMesh`` and raises
+    ``NotImplementedError`` elsewhere. Over a ``GlobalMesh`` on ``cuda``,
+    ``dense``, ``gather`` and ``native`` move device rows with the
+    process group's collectives, so they raise where the mesh has no
+    group whose backend takes cuda tensors: rows never detour through
+    host memory in the kernel's place."""
     if impl == "native":
-        raise NotImplementedError(
-            "impl='native' is lax.ragged_all_to_all across devices; it has "
-            "no single-card meaning and waits for the multi-process port")
-    if impl != "auto":
-        if impl not in TRANSPORTS:
-            raise ValueError(f"unknown exchange impl {impl!r}")
-        return impl
+        if not isinstance(device, GlobalMesh):
+            raise NotImplementedError(
+                "impl='native' is lax.ragged_all_to_all across processes; "
+                "it needs a GlobalMesh (parallel/multihost.py) and has no "
+                "single-card meaning")
+    elif impl != "auto" and impl not in TRANSPORTS:
+        raise ValueError(f"unknown exchange impl {impl!r}")
     dev = torch.device(getattr(device, "device", device))
-    return "ring" if dev.type == "cuda" else "gather"
+    if impl == "auto":
+        return "ring" if dev.type == "cuda" else "gather"
+    if (isinstance(device, GlobalMesh) and impl != "ring"
+            and device.data_group is None):
+        raise RuntimeError(
+            f"impl={impl!r} moves {dev.type} rows with the process group's "
+            "collectives, and this mesh has no group whose backend takes "
+            f"{dev.type} tensors (the control group is gloo; NCCL needs "
+            "one card per rank, and these ranks share one); use "
+            "impl='ring', which writes through CUDA IPC peer pointers")
+    return impl
 
 
 def resolve_transport(device, impl: str) -> str:
@@ -264,27 +294,176 @@ def _ring_exchange(data: torch.Tensor, mat: torch.Tensor,
 
 
 def _gather_exchange(data: torch.Tensor, mat: torch.Tensor,
-                     output: torch.Tensor) -> torch.Tensor:
+                     output: torch.Tensor, lo: int = 0) -> torch.Tensor:
     """The JAX oracle gathers every shard's rows and keeps, stably, those
     addressed to it: source j's segment ``[start[j, d], start[j, d] +
     mat[j, d])`` for receiver d, in source order. On one card that is a
-    direct compaction, with no D-fold gather and no argsort."""
+    direct compaction, with no D-fold gather and no argsort. ``data``
+    holds every source's rows; the receivers are shards ``[lo, lo +
+    len(output))`` (all of them on one card)."""
     d, cap = data.shape[0], data.shape[1]
-    out_cap = output.shape[1]
-    rc = mat.t().to(torch.int64)                       # [receiver, source]
-    start = _exclusive_cumsum(mat.to(torch.int64), dim=1).t()
+    nr, out_cap = output.shape[0], output.shape[1]
+    rc = mat.t().to(torch.int64)[lo:lo + nr]           # [receiver, source]
+    start = _exclusive_cumsum(mat.to(torch.int64), dim=1).t()[lo:lo + nr]
     off = _exclusive_cumsum(rc, dim=1)
     cum = torch.cumsum(rc, dim=1)
-    pos = torch.arange(out_cap, device=data.device).expand(d, out_cap)
+    pos = torch.arange(out_cap, device=data.device).expand(nr, out_cap)
     src = torch.clamp(torch.searchsorted(cum, pos.contiguous(), right=True),
                       max=d - 1)
     row = torch.clamp(start.gather(1, src) + pos - off.gather(1, src),
                       0, cap - 1)
     flat = (src * cap + row).reshape(-1)
     picked = data.reshape((d * cap,) + data.shape[2:]).index_select(0, flat)
-    picked = picked.reshape((d, out_cap) + data.shape[2:])
+    picked = picked.reshape((nr, out_cap) + data.shape[2:])
     mask = pos < cum[:, -1:]
     return torch.where(_trail(mask, picked), picked, output)
+
+
+# -- over a GlobalMesh: the exchange across processes -----------------------
+
+def allgather_host(mesh: GlobalMesh, values: np.ndarray) -> np.ndarray:
+    """Every process's ``values`` (same shape everywhere) stacked in rank
+    order, over the mesh's control group: ``[P, *values.shape]``."""
+    local = torch.from_numpy(np.ascontiguousarray(values))
+    parts = [torch.empty_like(local) for _ in range(mesh.num_processes)]
+    dist.all_gather(parts, local, group=mesh.group)
+    return torch.stack(parts).numpy()
+
+
+def global_slot_rows(mat: np.ndarray, out_capacity: int,
+                     capacity: int) -> int:
+    """Rows per (source, destination) slot of a global slot exchange,
+    from the gathered ``[G, G]`` matrix: the receive buffer's even share
+    ``out_capacity // G``, or, where a pair carries more, that pair
+    rounded up to a power of two and held to ``capacity`` (the most one
+    source shard sends), as ``device_plane._slot_rows`` sizes a round.
+    Only a receive past ``out_capacity`` can then overflow."""
+    g = mat.shape[0]
+    even = out_capacity // g
+    top = int(mat.max()) if mat.size else 0
+    return even if top <= even else min(capacity, bucket_quota(top))
+
+
+def _native_global(mesh: GlobalMesh, data: torch.Tensor, mat: np.ndarray,
+                   output: torch.Tensor) -> torch.Tensor:
+    """``lax.ragged_all_to_all``'s counterpart: one ``all_to_all_single``
+    with split sizes over the mesh's data group. The send side is this
+    process's rows grouped by destination process (each source shard's
+    segment for that process's shards is contiguous); the receive side
+    arrives (source process, source shard, receiver) major and is
+    regrouped per receiver by source, rows past each total taken from
+    ``output``."""
+    p, dl, g = mesh.num_processes, mesh.local_shards, mesh.num_shards
+    lo = mesh.first_shard
+    cap, out_cap = data.shape[1], output.shape[1]
+    mine = mat[lo:lo + dl]                               # [Dl src, G dst]
+    starts = np.cumsum(mine, axis=1) - mine
+    send_idx, in_splits = [], []
+    for q in range(p):
+        n = 0
+        for d in range(dl):
+            k = int(mine[d, q * dl:(q + 1) * dl].sum())
+            first = d * cap + int(starts[d, q * dl])
+            send_idx.append(np.arange(first, first + k))
+            n += k
+        in_splits.append(n)
+    to_me = mat[:, lo:lo + dl]                           # [G src, Dl dst]
+    out_splits = [int(to_me[q * dl:(q + 1) * dl].sum()) for q in range(p)]
+    dev = data.device
+    flat = data.reshape((dl * cap,) + data.shape[2:])
+    send = flat.index_select(0, torch.from_numpy(
+        np.concatenate(send_idx).astype(np.int64)).to(dev))
+    recv = torch.empty((sum(out_splits),) + data.shape[2:],
+                       dtype=data.dtype, device=dev)
+    dist.all_to_all_single(recv, send, out_splits, in_splits,
+                           group=mesh.data_group)
+    # block (source i, receiver e) sits at the (i, e)-major prefix sum
+    block_off = (np.cumsum(to_me.reshape(-1)) - to_me.reshape(-1)).reshape(
+        g, dl)
+    received = output.clone()
+    for e in range(dl):
+        idx = np.concatenate([np.arange(block_off[i, e],
+                                        block_off[i, e] + to_me[i, e])
+                              for i in range(g)])[:out_cap]
+        if len(idx):
+            received[e, :len(idx)] = recv.index_select(
+                0, torch.from_numpy(idx.astype(np.int64)).to(dev))
+    return received
+
+
+def ragged_exchange_global(mesh: GlobalMesh, data: torch.Tensor,
+                           send_counts: torch.Tensor,
+                           output: Optional[torch.Tensor] = None,
+                           impl: str = "auto",
+                           slot_rows: Optional[int] = None,
+                           counts_host: Optional[np.ndarray] = None,
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """``ragged_exchange_shard`` across the processes of ``mesh``.
+    Collective: every process calls it with its own shards.
+
+    ``data [Dl, capacity, ...]`` are this process's shards (global shards
+    ``mesh.first_shard + d``), grouped by destination in global shard
+    order; ``send_counts [Dl, G]`` what each sends to each global shard.
+    ``counts_host``, when the caller counted on the host, is the whole
+    ``[G, G]`` matrix (rows by global source) and spares the all-gather
+    of the device counts. ``slot_rows`` defaults to
+    ``global_slot_rows``.
+
+    Returns the JAX package's per-shard results for the local shards:
+    ``received [Dl, out_capacity, ...]`` packed by global source,
+    ``recv_counts int32[Dl, G]``, their exclusive prefix and
+    ``overflowed bool[Dl]``."""
+    impl = resolve_impl(mesh, impl)
+    g, dl, lo = mesh.num_shards, mesh.local_shards, mesh.first_shard
+    if counts_host is None:
+        local = send_counts.to("cpu", torch.int64).numpy()
+        counts_host = allgather_host(mesh, local).reshape(g, g)
+    mat_host = np.asarray(counts_host, dtype=np.int64).reshape(g, g)
+    mat = torch.from_numpy(mat_host.astype(np.int32)).to(data.device)
+    if output is None:
+        output = torch.zeros_like(data)
+    recv_true = mat.t()[lo:lo + dl]
+    pair_overflow = torch.zeros(dl, dtype=torch.bool, device=data.device)
+    q = max(1, slot_rows or global_slot_rows(mat_host, output.shape[1],
+                                             data.shape[1]))
+    if impl in ("ring", "dense"):
+        send, _, _, _ = _slot_fill(data, _exclusive_cumsum(
+            mat[lo:lo + dl], dim=1), mat[lo:lo + dl], g, q)
+        blocks = send.reshape((dl, g, q) + data.shape[2:])
+        if impl == "ring":
+            words = blocks.contiguous().reshape(dl, g, q, -1).view(
+                torch.int32)
+            got = ring_all_to_all_peers(words, mesh).view(
+                blocks.dtype).reshape(blocks.shape)
+        else:
+            got = ring_all_to_all_peers_plain(blocks, mesh.data_group,
+                                              mesh.num_processes)
+        received = _pack_by_source(got, torch.clamp(recv_true, max=q),
+                                   output)
+        pair_overflow = (recv_true > q).any(dim=1)
+    elif impl == "gather":
+        parts = [torch.empty_like(data) for _ in range(mesh.num_processes)]
+        dist.all_gather(parts, data.contiguous(), group=mesh.data_group)
+        received = _gather_exchange(torch.cat(parts), mat, output, lo)
+    else:
+        received = _native_global(mesh, data, mat_host, output)
+    overflowed = pair_overflow | (recv_true.sum(dim=1) > output.shape[1])
+    return (received, recv_true.contiguous(),
+            _exclusive_cumsum(recv_true, dim=1).to(torch.int32),
+            overflowed)
+
+
+def exchange_over(mesh, data: torch.Tensor, send_counts: torch.Tensor,
+                  output: Optional[torch.Tensor] = None, impl: str = "auto",
+                  slot_rows: Optional[int] = None,
+                  counts_host: Optional[np.ndarray] = None):
+    """The ragged exchange over ``mesh``: ``ragged_exchange_global`` on a
+    ``GlobalMesh``, ``ragged_exchange_shard`` (one card) otherwise."""
+    if isinstance(mesh, GlobalMesh):
+        return ragged_exchange_global(mesh, data, send_counts, output, impl,
+                                      slot_rows, counts_host)
+    return ragged_exchange_shard(data, send_counts, output, impl, slot_rows)
 
 
 def group_by_destination(data: torch.Tensor, dest: torch.Tensor,
@@ -313,19 +492,23 @@ def group_by_destination(data: torch.Tensor, dest: torch.Tensor,
 
 def shuffle_shard(data: torch.Tensor, dest: torch.Tensor,
                   output: Optional[torch.Tensor] = None,
-                  impl: str = "auto"):
+                  impl: str = "auto", mesh=None,
+                  counts_host: Optional[np.ndarray] = None):
     """Full shuffle step of every shard: group locally by destination
-    shard, then ragged-exchange. Returns ``(received, recv_counts,
-    recv_offsets, overflowed)`` — see ``ragged_exchange_shard``."""
-    grouped, counts = group_by_destination(data, dest, data.shape[0])
-    return ragged_exchange_shard(grouped, counts, output, impl)
+    shard, then ragged-exchange (across processes when ``mesh`` is a
+    ``GlobalMesh``). Returns ``(received, recv_counts, recv_offsets,
+    overflowed)`` — see ``ragged_exchange_shard``."""
+    shards = mesh.num_shards if mesh is not None else data.shape[0]
+    grouped, counts = group_by_destination(data, dest, shards)
+    return exchange_over(mesh, grouped, counts, output, impl,
+                         counts_host=counts_host)
 
 
 @functools.lru_cache(maxsize=64)
 def make_shuffle_exchange(mesh, impl: str = "auto", out_factor: int = 1):
-    """The all-shard shuffle exchange over ``mesh`` (a ``VirtualMesh``),
-    memoized per ``(mesh, impl, out_factor)`` as the JAX function is, so
-    per-job callers share one.
+    """The all-shard shuffle exchange over ``mesh`` (a ``VirtualMesh`` or
+    a ``GlobalMesh``), memoized per ``(mesh, impl, out_factor)`` as the
+    JAX function is, so per-job callers share one.
 
     Returns ``exchange(data [D, capacity, ...], dest [D, capacity]) ->
     (received [D, capacity * out_factor, ...], recv_counts int32[D, D],
@@ -333,15 +516,20 @@ def make_shuffle_exchange(mesh, impl: str = "auto", out_factor: int = 1):
     shard d's receive-overflow flag (capacity or slot pair): check it
     before trusting ``received``. ``out_factor`` scales each shard's
     receive capacity against its send capacity, since a receiver may net
-    more rows than it sent (skew)."""
+    more rows than it sent (skew). Over a ``GlobalMesh`` ``D`` is the
+    process's ``local_shards``, the counts are ``[Dl, G]``, and
+    ``exchange`` takes ``counts_host``, the ``[G, G]`` matrix when the
+    caller counted it on the host (``ragged_exchange_global``)."""
     impl = resolve_transport(mesh, impl)
+    global_mesh = mesh if isinstance(mesh, GlobalMesh) else None
 
-    def exchange(data: torch.Tensor, dest: torch.Tensor):
+    def exchange(data: torch.Tensor, dest: torch.Tensor,
+                 counts_host: Optional[np.ndarray] = None):
         output = torch.zeros((data.shape[0], data.shape[1] * out_factor)
                              + tuple(data.shape[2:]), dtype=data.dtype,
                              device=data.device)
         return shuffle_shard(data, dest.reshape(data.shape[:2]), output,
-                             impl)
+                             impl, global_mesh, counts_host)
 
     return exchange
 

@@ -12,12 +12,17 @@ launches whatever D is:
 * ``lax.all_to_all`` is a swap of the two leading axes;
 * every per-shard op (sort, searchsorted, take, cumsum) runs batched
   along dim 1.
+
+A ``GlobalMesh`` spans several processes (``parallel/multihost.py``
+builds it): each holds ``local_shards`` of the ``num_shards`` global
+shards as its own ``[Dl, cap, ...]`` tensors, and only the exchange
+crosses processes.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Union
+from dataclasses import dataclass, field
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -47,6 +52,67 @@ class VirtualMesh:
             raise ValueError(f"num_shards must be >= 1, got {num_shards}")
         object.__setattr__(self, "num_shards", int(num_shards))
         object.__setattr__(self, "device", resolve_device(device))
+
+    @property
+    def local_shards(self) -> int:
+        """Shards this process holds: all of them."""
+        return self.num_shards
+
+
+@dataclass(frozen=True)
+class ShardDevice:
+    """Where global shard ``id`` of a ``GlobalMesh`` lives: its process
+    and, for this process's shards, the device (None for a peer's).
+    ``process_index`` is what
+    ``topology.detect_topology`` groups shards into slices by, as the
+    JAX package's devices expose it."""
+
+    id: int
+    process_index: int
+    device: Optional[torch.device]
+
+
+@dataclass(frozen=True, eq=False)
+class GlobalMesh:
+    """``num_processes`` processes, each with ``local_shards`` virtual
+    shards on its ``device``: ``num_shards = P * Dl`` global shards, and
+    global shard ``g = rank * Dl + d`` is local shard ``d`` of process
+    ``rank`` (the JAX package's ``mesh.devices.flat`` order).
+
+    ``group`` is the gloo control group (metadata, barriers, IPC
+    handles); ``data_group`` is a group whose backend takes tensors on
+    ``device`` (the control group on the CPU, an NCCL group where each
+    rank has a card of its own), or None. ``arena`` is the receive arena
+    the ring kernel writes into across processes. Hashed by identity:
+    one mesh per process (``multihost.global_mesh``)."""
+
+    num_processes: int
+    local_shards: int
+    rank: int
+    device: torch.device
+    group: object = field(repr=False)
+    data_group: object = field(repr=False, default=None)
+    arena: object = field(repr=False, default=None)
+
+    @property
+    def num_shards(self) -> int:
+        return self.num_processes * self.local_shards
+
+    @property
+    def first_shard(self) -> int:
+        """This process's first global shard."""
+        return self.rank * self.local_shards
+
+    @property
+    def devices(self) -> Tuple[ShardDevice, ...]:
+        dl = self.local_shards
+        return tuple(ShardDevice(g, g // dl, self.device
+                                 if g // dl == self.rank else None)
+                     for g in range(self.num_shards))
+
+    def local_view(self) -> VirtualMesh:
+        """This process's shards as a ``VirtualMesh`` (host staging)."""
+        return VirtualMesh(self.local_shards, self.device)
 
 
 def take_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

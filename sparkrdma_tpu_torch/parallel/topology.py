@@ -38,7 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+from sparkrdma_tpu_torch.parallel.mesh import GlobalMesh, VirtualMesh
 
 # Host-side tally of bytes moved ACROSS a slice boundary (the residue the
 # hierarchical exchange hands the host). The hierarchical plan's point is
@@ -226,8 +226,14 @@ def detect_topology(mesh: Optional[VirtualMesh], conf=None) -> Topology:
     """The mesh's two-level topology: the ``slice_topology`` conf key when
     set (virtual slicing), else the grouping of the shards' devices. A
     ``VirtualMesh`` keeps every shard on one card, so that is one flat
-    slice. No mesh: the empty degenerate topology."""
-    devices = [mesh.device] * mesh.num_shards if mesh is not None else []
+    slice; a ``GlobalMesh``'s shards carry their ``process_index``, so
+    each process is a slice. No mesh: the empty degenerate topology."""
+    if mesh is None:
+        devices = []
+    elif isinstance(mesh, GlobalMesh):
+        devices = list(mesh.devices)
+    else:
+        devices = [mesh.device] * mesh.num_shards
     return _conf_topology(conf, len(devices), devices or None)
 
 

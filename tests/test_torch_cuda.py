@@ -494,3 +494,76 @@ def test_engine_job_on_card_rides_the_device_plane(cuda, tmp_path,
         np.testing.assert_array_equal(got_k, keys[order])
         np.testing.assert_array_equal(got_p, payload[order])
         assert remote == 0
+
+
+@pytest.mark.parametrize("shape,offset", [((8, 8, 1000, 25), 0),
+                                          ((4, 4, 7, 3), 1)])
+def test_range_launches_make_the_full_launch(cuda, shape, offset):
+    """Two launches over half the sources each, into one output, equal the
+    full launch and the plain version: aligned (the TMA body) and at a
+    view 4 bytes into its storage with odd blocks (load/store)."""
+    d = shape[0]
+    flat = _blocks((offset + int(np.prod(shape)),), d, cuda)
+    x = flat[offset:].view(shape)
+    out = torch.full_like(x, -1)
+    src, dst = tre._pointer_table(x, out)
+    body = tre.body_for(src, dst, shape[2] * shape[3] * 4)
+    assert body == ("tma" if offset == 0 else "ldst")
+    half = d // 2
+    tre._launch(x, out, body, src[:half], dst, src_begin=0)
+    tre._launch(x, out, body, src[half:], dst, src_begin=half)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tre.ring_all_to_all(x))
+    assert torch.equal(out, tre.ring_all_to_all_plain(x))
+
+
+_IPC_WORKER = r'''
+import sys
+import numpy as np
+import torch
+from sparkrdma_tpu_torch.ops import ring_exchange as tre
+from sparkrdma_tpu_torch.parallel import multihost
+pid, port = int(sys.argv[1]), sys.argv[2]
+multihost.init_multihost(f"127.0.0.1:{port}", 2, pid, local_device_count=4,
+                         platform="cuda")
+mesh = multihost.global_mesh()
+for shape in ((8, 8, 1000, 25), (8, 8, 7, 3)):
+    rng = np.random.default_rng(sum(shape))
+    glob = torch.from_numpy(rng.integers(-2**31, 2**31, shape).astype(
+        np.int32)).to(mesh.device)
+    mine = glob[pid * 4:(pid + 1) * 4].contiguous()
+    got = tre.ring_all_to_all_peers(mine, mesh).clone()
+    want = tre.ring_all_to_all_plain(glob)[pid * 4:(pid + 1) * 4]
+    assert torch.equal(got, want), shape
+assert tre.LAUNCHES == 2 and set(tre.BODIES) == {"tma", "ldst"}, tre.BODIES
+multihost.shutdown_multihost()
+print("IPC_OK", pid, flush=True)
+'''
+
+
+def test_two_process_ipc_exchange_on_card(cuda):
+    """Two processes share the card, 4 shards each: each launches the
+    kernel over its own sources, writing through CUDA IPC peer pointers
+    into both receive arenas, and each arena equals the plain move."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen([sys.executable, "-c", _IPC_WORKER, str(i),
+                               port], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env, cwd=root)
+             for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=180)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for i, out in enumerate(outs):
+        assert f"IPC_OK {i}" in out, out[-3000:]

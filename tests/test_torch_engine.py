@@ -294,10 +294,20 @@ def test_engine_mesh_rejects_remote_executors(clusters, meshes):
         tengine.DAGEngine(driver, [*execs, fake], mesh=meshes["port"])
 
 
-def test_dist_mesh_mode_is_not_ported(clusters):
-    driver, execs = clusters["port"]
-    with pytest.raises(NotImplementedError, match="multihost"):
-        tengine.DAGEngine(driver, execs, dist_mesh_axis="shuffle")
+def test_dist_mesh_mode_is_not_ported(clusters, meshes):
+    """Distributed mesh mode is ported (``test_torch_dist_engine.py``
+    runs it); its constructor refuses what the reference's refuses, with
+    the same messages: in-process executors, and a mesh beside
+    ``dist_mesh_axis``."""
+    for pkg in ("jax", "port"):
+        driver, execs = clusters[pkg]
+        engine_mod = PKGS[pkg][0]
+        with pytest.raises(ValueError, match="requires every executor to "
+                           "be a RemoteExecutor"):
+            engine_mod.DAGEngine(driver, execs, dist_mesh_axis="shuffle")
+        with pytest.raises(ValueError, match="exclusive"):
+            engine_mod.DAGEngine(driver, execs, mesh=meshes[pkg],
+                                 dist_mesh_axis="shuffle")
 
 
 def test_word_count_matches_jax(clusters, meshes):

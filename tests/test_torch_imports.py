@@ -34,7 +34,8 @@ def _imported_roots(path: Path):
 def test_port_has_sources():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES[:-1]}
     for must in ("ops/ring_exchange.py", "parallel/exchange.py",
-                 "parallel/device_plane.py", "models/terasort.py",
+                 "parallel/device_plane.py", "parallel/multihost.py",
+                 "models/terasort.py",
                  "models/als.py", "models/pagerank.py", "models/join.py",
                  "models/tpcds.py", "models/tpcds_queries.py",
                  "ops/sort.py", "ops/aggregate.py", "parallel/topology.py",
@@ -102,3 +103,28 @@ def test_package_import_is_lazy():
     assert "sparkrdma_tpu_torch.engine" in proc.stdout
     assert "sparkrdma_tpu_torch.rdd" in proc.stdout
     assert "sparkrdma_tpu." not in proc.stdout
+
+
+def test_chip_smoke_worker_path_loads_no_jax_and_needs_a_card():
+    """``chip_smoke.py --multihost-worker`` (the multihost phase's worker
+    processes) loads no JAX and nothing of the JAX package, and without
+    a card it raises before printing any result."""
+    code = ("import runpy, sys\n"
+            "sys.argv = ['chip_smoke.py', '--multihost-worker', '0', '1', "
+            "'.']\n"
+            "try:\n"
+            "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+            "except Exception as e:\n"
+            "    print('RAISED', type(e).__name__, e)\n"
+            "print('LOADED', sorted(m for m in sys.modules if m.split('.')[0]"
+            " in ('jax', 'jaxlib', 'sparkrdma_tpu')))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+    assert "MULTIHOST_WORKER" not in proc.stdout
+    import torch
+
+    if not torch.cuda.is_available():
+        assert "RAISED RuntimeError no CUDA device" in proc.stdout, \
+            proc.stdout

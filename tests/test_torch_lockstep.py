@@ -50,6 +50,7 @@ PORTED = (
     "parallel/device_plane.py",
     "parallel/exchange.py",
     "parallel/mesh.py",
+    "parallel/multihost.py",
     "parallel/topology.py",
     "runtime/shim_build.py",
     "shuffle/mesh_service.py",
@@ -127,12 +128,10 @@ def test_reader_differs_only_in_read_to_device():
                                     "read_to_device", "_donated"}
 
 
-# engine.py against the reference: the dist-mode functions, cut whole, and
-# every other line the port adds or removes (stripped), with its reason
-ENGINE_DIST_ONLY = ("_make_dist_collective", "DAGEngine._dist_mesh_reduce",
-                    "DAGEngine._dist_collect")
+# engine.py against the reference: every line the port adds or removes
+# (stripped), with its reason
 ENGINE_ADDED = (
-    # blank lines around the docstring paragraph and the refusal
+    # blank line before the docstring paragraph
     r"",
     # the port's docstring paragraph
     r"Port of ``sparkrdma_tpu/engine.py``.*",
@@ -140,13 +139,14 @@ ENGINE_ADDED = (
     r"stages ride the port's.*",
     r"there takes an axis name\..*",
     r"collective across executor processes\).*",
-    r"which is not ported yet.*",
+    r"``parallel/multihost\.py``; each executor process.*",
+    r"``multihost\.init_multihost`` at startup\.",
     # the mesh is a VirtualMesh
     r"# ICI data plane: with a VirtualMesh here.*",
-    # dist mode refused until parallel/multihost.py is ported
-    r"raise NotImplementedError\($",
-    r'"distributed mesh mode \(dist_mesh_axis\) is not ported.*',
-    r'"needs parallel/multihost\.py.*',
+    # dist mode's rank and world size come from the port's multihost
+    r"global_mesh, process_count, process_index,",
+    r"run_multihost_mesh_reduce\)",
+    r"return \(process_index\(\), process_count\(\), parts\)",
     # the port's device API: no axis names
     r"n_dev = self\.mesh\.num_shards",
     r"impl=plan\.impl,",
@@ -155,23 +155,14 @@ ENGINE_ADDED = (
     r"return select_dataplane\(self\.mesh, profile,",
 )
 ENGINE_REMOVED = (
-    # blank lines the refusal replaces
+    # the blank line after dist mode's jax import
     r"",
     # the mesh was a jax.sharding.Mesh
     r"# ICI data plane: with a jax\.sharding\.Mesh here, on-mesh stages'",
-    # the ctor's dist-mode checks, replaced by the refusal
-    r"if mesh is not None:",
-    r'raise ValueError\("mesh and dist_mesh_axis are exclusive"\)',
-    r"if not all\(self\._is_remote\(ex\) for ex in executors\):",
-    r"raise ValueError\(",
-    r'"dist_mesh_axis requires every executor to be a "',
-    r'"RemoteExecutor \(one per jax\.distributed process\)"\)',
-    # _run_stage_tasks' call into the dist-mode reduce
-    r"if self\.dist_mesh_axis is not None:",
-    r"for p in stage\.parents:",
-    r"h = self\._handles\.get\(p\.stage_id\)",
-    r"if h is not None:",
-    r"self\._dist_mesh_reduce\(h\)",
+    # dist mode's rank and world size came from jax
+    r"import jax",
+    r"global_mesh, run_multihost_mesh_reduce\)",
+    r"return \(jax\.process_index\(\), jax\.process_count\(\), parts\)",
     # the JAX device API's axis names
     r"n_dev = self\.mesh\.shape\[self\.mesh_axis\]",
     r"axis_name=self\.mesh_axis, impl=plan\.impl,",
@@ -182,47 +173,23 @@ ENGINE_REMOVED = (
 )
 # the only functions whose bodies change (their class's source with them)
 ENGINE_CHANGED = {"DAGEngine", "DAGEngine.__init__",
-                  "DAGEngine._run_stage_tasks",
+                  "_make_dist_collective",
                   "DAGEngine._compute_mesh_partitions",
                   "DAGEngine._select_plan"}
 
 
-def _without(text: str, names) -> str:
-    """``text`` with the named top-level functions and methods (their
-    decorators included) cut out."""
-    tree = ast.parse(text)
-    cut = set()
-    for node in tree.body:
-        if not isinstance(node, (ast.FunctionDef, ast.ClassDef)):
-            continue
-        items = [(node.name, node)]
-        if isinstance(node, ast.ClassDef):
-            items += [(f"{node.name}.{item.name}", item)
-                      for item in node.body
-                      if isinstance(item, ast.FunctionDef)]
-        for name, item in items:
-            if name in names:
-                first = min([item.lineno]
-                            + [d.lineno for d in item.decorator_list])
-                cut.update(range(first, item.end_lineno + 1))
-    return "\n".join(line for i, line in enumerate(text.splitlines(), 1)
-                     if i not in cut)
-
-
 def test_engine_differs_only_where_the_device_api_does():
-    """The dist-mode functions are cut whole; every other line the port
-    adds or removes is on a list, with its reason, and only the listed
-    functions change."""
+    """Every line the port adds or removes is on a list, with its reason,
+    and only the listed functions change; distributed mode is the
+    reference's, calling the port's multihost."""
     ref = _rewritten("engine.py")
     port = (PORT / "engine.py").read_text()
     want, got = _defs(ref), _defs(port)
-    assert set(want) - set(got) == set(ENGINE_DIST_ONLY)
-    assert set(got) <= set(want)
+    assert set(want) == set(got)
     changed = {name for name in got if got[name] != want[name]}
     assert changed == ENGINE_CHANGED
     diff = list(difflib.unified_diff(
-        _without(ref, ENGINE_DIST_ONLY).splitlines(), port.splitlines(),
-        lineterm="", n=0))
+        ref.splitlines(), port.splitlines(), lineterm="", n=0))
     added = [line[1:].strip() for line in diff
              if line.startswith("+") and not line.startswith("+++")]
     removed = [line[1:].strip() for line in diff

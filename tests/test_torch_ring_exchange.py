@@ -117,6 +117,52 @@ def test_pointer_table_refuses_more_than_max_shards():
         tre._pointer_table(big, torch.empty_like(big))
 
 
+def _range_launch(src, dst, src_begin, block):
+    """What the kernel's range launch does with its bases: block (i, j)
+    of source shard ``src_begin + i`` goes from ``src[i] + j*block`` to
+    ``dst[j] + (src_begin + i)*block``."""
+    import ctypes
+
+    for i, s in enumerate(src):
+        for j, d in enumerate(dst):
+            ctypes.memmove(d + (src_begin + i) * block, s + j * block, block)
+
+
+@pytest.mark.parametrize("dl,procs", [(1, 2), (2, 2), (3, 2), (2, 3)])
+def test_peer_pointer_table_range_launches(dl, procs):
+    """Each process's table (its ``Dl`` source bases, every process's
+    arena shard as a destination base), driven as the kernel drives it
+    over the source range ``[rank*Dl, rank*Dl + Dl)``, fills every arena
+    with the plain all-to-all of the global blocks."""
+    g, c, w = dl * procs, 3, 5
+    rng = np.random.default_rng(g)
+    glob = torch.from_numpy(rng.integers(
+        -2**31, 2**31, (g, g, c, w)).astype(np.int32))
+    arenas = [torch.zeros((dl, g, c, w), dtype=torch.int32)
+              for _ in range(procs)]
+    shard, block = g * c * w * 4, c * w * 4
+    for rank in range(procs):
+        mine = glob[rank * dl:(rank + 1) * dl].contiguous()
+        src, dst = tre._peer_pointer_table(
+            mine, [a.data_ptr() for a in arenas])
+        assert src == [mine.data_ptr() + i * shard for i in range(dl)]
+        assert dst == [arenas[j // dl].data_ptr() + (j % dl) * shard
+                       for j in range(g)]
+        _range_launch(src, dst, rank * dl, block)
+    want = tre.ring_all_to_all_plain(glob)
+    for rank, arena in enumerate(arenas):
+        assert torch.equal(arena, want[rank * dl:(rank + 1) * dl]), rank
+
+
+def test_peer_pointer_table_refusals():
+    blocks = torch.zeros((2, tre.MAX_SHARDS + 2, 1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"at most {tre.MAX_SHARDS} shards"):
+        tre._peer_pointer_table(blocks, [0] * (tre.MAX_SHARDS // 2 + 1))
+    with pytest.raises(ValueError, match="do not make 4 destinations"):
+        tre._peer_pointer_table(torch.zeros((2, 4, 1, 1), dtype=torch.int32),
+                                [0, 0, 0])
+
+
 def test_bases_struct_matches_the_kernel_source():
     """``_Bases`` mirrors ``struct Bases`` in the CUDA source: the same
     shard limit, 2 KB, by value in the 4 KB parameter block."""
