@@ -93,7 +93,28 @@ printing one JSON line; any failure raises and the exit code is not 0:
     to the plain move and timed at every block shape they ran at, one
     process at a time (the other waits at a barrier), into the peers'
     arenas and into a local buffer;
-13. the kernel table line, then the device line last.
+13. cli_and_benches: the command line and the device benches.
+    ``python -m sparkrdma_tpu_torch`` ``info`` (must name the card),
+    ``config``, ``selftest``, ``engine-demo`` and ``rdd-demo`` as
+    processes started together, each exiting 0 and verified; ``demo``
+    (TeraSort of 800,000 rows) and ``engine-mesh-demo`` (the TPC-DS star
+    as an engine job on the device plane) in this process through
+    ``main([...])``, each launching the ring kernel, every block shape
+    held to the plain version; ``shuffle-service`` as a real process
+    that adopts a stopped executor's spill directory (2 of 4 maps of
+    2**18 100-byte records), a reducer reading all 16 partitions exactly
+    through it, and SIGTERM ending it with exit 0; ``device_bench``
+    (the host-staged TCP reduce with a 6 ms service delay per request
+    against ``run_mesh_reduce_fused``) at its defaults and at the
+    mesh_service phase's records cut to 256 MiB, each byte-identical
+    and launching the kernel; ``topo_bench`` (flat against hierarchical
+    on two slices, ``impl="gather"``: no kernel) at its defaults and at
+    65,536 rows a shard, each identical with strictly fewer hierarchical
+    cross-slice bytes; ``client_bench`` at its ``main``'s defaults with
+    checksums off and on: client CPU per GB, GB/s and wire-to-device ms
+    of the Python and the native receive paths, identical, and their
+    ratios, not gated;
+14. the kernel table line, then the device line last.
 """
 
 from __future__ import annotations
@@ -101,14 +122,17 @@ from __future__ import annotations
 import collections
 import contextlib
 import hashlib
+import io
 import itertools
 import json
 import os
+import queue
 import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -116,6 +140,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from sparkrdma_tpu_torch.__main__ import main as cli_main
+from sparkrdma_tpu_torch.config import _KEYS as _CONF_KEYS
 from sparkrdma_tpu_torch.config import TpuShuffleConf
 from sparkrdma_tpu_torch.engine import DAGEngine, MapStage, ResultStage
 from sparkrdma_tpu_torch.models import (
@@ -149,8 +175,17 @@ from sparkrdma_tpu_torch.parallel.device_plane import (
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 from sparkrdma_tpu_torch.rdd import EngineContext
 from sparkrdma_tpu_torch.runtime import native
-from sparkrdma_tpu_torch.shuffle import mesh_service
-from sparkrdma_tpu_torch.shuffle.manager import PartitionerSpec, ShuffleHandle
+from sparkrdma_tpu_torch.shuffle import (
+    client_bench,
+    device_bench,
+    mesh_service,
+    topo_bench,
+)
+from sparkrdma_tpu_torch.shuffle.manager import (
+    PartitionerSpec,
+    ShuffleHandle,
+    TpuShuffleManager,
+)
 from sparkrdma_tpu_torch.shuffle.reader import read_to_device
 from sparkrdma_tpu_torch.shuffle.spark_compat import (
     ShuffleDependency,
@@ -1926,8 +1961,7 @@ def phase_multihost(row: dict, cfg: TeraSortConfig,
         sock.bind(("127.0.0.1", 0))
         port = str(sock.getsockname()[1])
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env = _child_env()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as work:
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
@@ -2045,6 +2079,285 @@ def phase_multihost(row: dict, cfg: TeraSortConfig,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# cli_and_benches: the command line and the device benches
+# ---------------------------------------------------------------------------
+
+CLI_SUBPROCESS = ("info", "config", "selftest", "engine-demo", "rdd-demo")
+CLI_TIMEOUT_S = 240         # per command, start to finish
+SVC_MAPS = 4                # the shuffle-service step: 4 maps of 2**18
+SVC_MAP_ROWS = 1 << 18      # 100-byte records (100 MiB), 2 per executor,
+SVC_PARTITIONS = 16         # modulo-partitioned
+SVC_SHUFFLE_ID = 11
+SVC_BANNER_S = 60
+# device_bench at a real stage size: the mesh_service phase's records
+# (92-byte payload, 200 partitions, 8 maps) cut to 256 MiB, since the
+# host side reads every byte over loopback TCP three times
+DB_STAGE = dict(num_maps=MS_MAPS, num_partitions=MS_PARTITIONS,
+                rows_per_map=335_544, payload_bytes=MS_PAYLOAD)
+TOPO_ROWS_PER_DEV = 65_536  # 6 MiB: ~3 s of modelled flat-side sleep a run
+# client_bench at its main()'s defaults
+CLIENT_BENCH = dict(file_mb=64, total_mb=512, block_kb=256)
+
+
+def _child_env() -> dict:
+    """This process's environment with the checkout first on
+    ``PYTHONPATH``, for the processes the script starts."""
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def _json_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def _cli_subprocesses() -> dict:
+    """``python -m sparkrdma_tpu_torch <cmd>`` for each command of
+    ``CLI_SUBPROCESS``, all started together; each must exit 0, ``info``
+    must name the card, and each JSON line must say it verified."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = {cmd: subprocess.Popen(
+        [sys.executable, "-m", "sparkrdma_tpu_torch", cmd],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_child_env(), cwd=root) for cmd in CLI_SUBPROCESS}
+    out = {}
+    try:
+        for cmd, proc in procs.items():
+            left = CLI_TIMEOUT_S - (time.perf_counter() - t0)
+            stdout, stderr = proc.communicate(timeout=max(1, left))
+            if proc.returncode != 0:
+                raise AssertionError(f"`python -m sparkrdma_tpu_torch {cmd}` "
+                                     f"exited {proc.returncode}:\n"
+                                     f"{stderr[-3000:]}")
+            out[cmd] = stdout
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    name = torch.cuda.get_device_name(0)
+    devices = [ln for ln in out["info"].splitlines()
+               if ln.startswith("devices:")]
+    if devices != [f"devices: {torch.cuda.device_count()} x {name} (cuda)"]:
+        raise AssertionError(f"info does not name the card: {out['info']}")
+    if len(out["config"].splitlines()) != len(_CONF_KEYS):
+        raise AssertionError("config printed the wrong number of keys")
+    checks = {"selftest": ("selftest", "ok"),
+              "engine-demo": ("oracle_exact", True),
+              "rdd-demo": ("verified", True)}
+    records = {}
+    for cmd, (key, want) in checks.items():
+        lines = _json_lines(out[cmd])
+        if len(lines) != 1 or lines[0].get(key) != want:
+            raise AssertionError(f"{cmd} did not verify: {out[cmd]}")
+        records[cmd] = lines[0]
+    return {"wall_s": time.perf_counter() - t0, "info": out["info"]
+            .splitlines(), "config_keys": len(_CONF_KEYS), **records}
+
+
+def _cli_in_process(argv) -> dict:
+    """``main(argv)`` of the port's CLI in this process (so its kernel
+    launches count here); it must exit 0 and print one JSON line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    lines = _json_lines(buf.getvalue())
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"{argv} exited {rc}: {buf.getvalue()}")
+    return lines[0]
+
+
+def _service_records():
+    """The shuffle-service step's maps: unique u64 keys (a shuffled
+    stride, so each partition sorts to one order) and random payload
+    bytes, from seed 5."""
+    rng = np.random.default_rng(5)
+    n = SVC_MAPS * SVC_MAP_ROWS
+    keys = rng.permutation(n).astype(np.uint64) * np.uint64(0x9E3779B1)
+    payload = np.frombuffer(rng.bytes(n * MS_PAYLOAD), np.uint8).reshape(
+        n, MS_PAYLOAD)
+    return keys, payload
+
+
+def _shuffle_service_step() -> dict:
+    """``python -m sparkrdma_tpu_torch shuffle-service`` as a real
+    process: two executors commit ``SVC_MAPS`` maps, executor 1 stops
+    (its spill directory survives), the service adopts that directory and
+    re-publishes its committed outputs, and executor 0 reads every
+    partition exactly with no map recomputed; SIGTERM then ends the
+    service with exit 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    keys, payload = _service_records()
+    conf = TpuShuffleConf(connect_timeout_ms=5000, max_connection_attempts=2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_svc_") as tmp:
+        driver = TpuShuffleManager(conf, is_driver=True)
+        execs = [TpuShuffleManager(conf, driver_addr=driver.driver_addr,
+                                   executor_id=str(i),
+                                   spill_dir=os.path.join(tmp, f"e{i}"))
+                 for i in range(2)]
+        svc = None
+        try:
+            for ex in execs:
+                ex.executor.wait_for_members(2)
+            handle = driver.register_shuffle(
+                SVC_SHUFFLE_ID, num_maps=SVC_MAPS,
+                num_partitions=SVC_PARTITIONS,
+                partitioner=PartitionerSpec("modulo"),
+                row_payload_bytes=MS_PAYLOAD)
+            for m in range(SVC_MAPS):
+                rows = slice(m * SVC_MAP_ROWS, (m + 1) * SVC_MAP_ROWS)
+                w = execs[m % 2].get_writer(handle, m)
+                w.write_batch(keys[rows], payload[rows])
+                w.close()
+            lost = execs[1].executor.manager_id
+            execs[1].executor.stop()
+            if execs[1].block_server is not None:
+                execs[1].block_server.stop()
+            driver.driver.remove_member(lost)
+            time.sleep(0.3)
+
+            host, port = driver.driver_addr
+            t0 = time.perf_counter()
+            svc = subprocess.Popen(
+                [sys.executable, "-m", "sparkrdma_tpu_torch",
+                 "shuffle-service", f"{host}:{port}",
+                 os.path.join(tmp, "e1"), "svc1"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=_child_env(), cwd=root)
+            banner = queue.Queue()
+            threading.Thread(target=lambda: banner.put(svc.stdout.readline()),
+                             daemon=True).start()
+            try:
+                line = banner.get(timeout=SVC_BANNER_S)
+            except queue.Empty:
+                raise AssertionError("shuffle-service printed no banner in "
+                                     f"{SVC_BANNER_S} s") from None
+            banner_s = time.perf_counter() - t0
+            want = f"serving {SVC_MAPS // 2} recovered map outputs"
+            if want not in line:
+                raise AssertionError(f"shuffle-service banner: {line!r}")
+
+            execs[0].executor.invalidate_shuffle(SVC_SHUFFLE_ID)
+            t0 = time.perf_counter()
+            part = keys % np.uint64(SVC_PARTITIONS)
+            rows_read = 0
+            for p in range(SVC_PARTITIONS):
+                got_k, got_p = execs[0].get_reader(handle, p, p + 1).read_all()
+                mine = np.flatnonzero(part == p)
+                order = np.argsort(got_k, kind="stable")
+                want_order = mine[np.argsort(keys[mine], kind="stable")]
+                if not (np.array_equal(got_k[order], keys[want_order])
+                        and np.array_equal(got_p[order],
+                                           payload[want_order])):
+                    raise AssertionError(f"partition {p} served by the "
+                                         "shuffle service is not exact")
+                rows_read += len(got_k)
+            read_s = time.perf_counter() - t0
+            svc.terminate()
+            rc = svc.wait(timeout=30)
+            if rc != 0:
+                raise AssertionError(f"shuffle-service exited {rc} on "
+                                     "SIGTERM")
+        finally:
+            if svc is not None and svc.poll() is None:
+                svc.kill()
+                svc.wait()
+            for ex in execs:
+                ex.stop()
+            driver.stop()
+    return {"banner": line.strip(), "banner_s": banner_s,
+            "rows": rows_read, "bytes": rows_read * (8 + MS_PAYLOAD),
+            "partitions": SVC_PARTITIONS, "read_s": read_s,
+            "exact": True, "sigterm_exit": rc}
+
+
+def _bench_run(row: dict, path: str, fn) -> tuple:
+    """One bench run wrapped by ``_launches``: its result, the run's wall
+    time (set-up and warm-up included), launches and ring shapes (each
+    checked against the plain version)."""
+    t0 = time.perf_counter()
+    res, launches, shapes = _launches(path, fn)
+    run_s = time.perf_counter() - t0
+    if not res["identical"]:
+        raise AssertionError(f"{path}: the two dataplanes disagree: {res}")
+    return res, {"run_s": run_s, "ring_launches": launches,
+                 "ring_shapes": _check_path_shapes(row, path, shapes)}
+
+
+def phase_cli_and_benches(row: dict) -> dict:
+    """The CLI and the device benches (module docstring, phase 13).
+    Returns the kernel's launches per path."""
+    t_phase = time.perf_counter()
+    launches = {}
+    cli = _cli_subprocesses()
+    emit({"phase": "cli_and_benches", "step": "cli_subprocesses", **cli})
+
+    for path, argv in (("cli/demo", ["demo"]),
+                       ("cli/engine_mesh_demo", ["engine-mesh-demo"])):
+        t0 = time.perf_counter()
+        record, launches[path], shapes = _launches(
+            path, lambda argv=argv: _cli_in_process(argv))
+        if not (record.get("verified") or record.get("oracle_exact")):
+            raise AssertionError(f"{argv} did not verify: {record}")
+        emit({"phase": "cli_and_benches", "step": path, **record,
+              "wall_s": time.perf_counter() - t0,
+              "ring_launches": launches[path],
+              "ring_shapes": _check_path_shapes(row, path, shapes)})
+
+    emit({"phase": "cli_and_benches", "step": "shuffle_service",
+          **_shuffle_service_step()})
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        for path, kw in (("device_bench/default", {}),
+                         ("device_bench/stage", DB_STAGE)):
+            spill = os.path.join(tmp, path.replace("/", "_"))
+            res, info = _bench_run(row, path, lambda kw=kw, spill=spill:
+                                   device_bench.run_device_microbench(
+                                       spill, **kw))
+            launches[path] = info["ring_launches"]
+            emit({"phase": "cli_and_benches", "step": path, "args": kw,
+                  **res, **info})
+
+        for rows_per_dev in (2048, TOPO_ROWS_PER_DEV):
+            ring_exchange.LAUNCHES = 0
+            t0 = time.perf_counter()
+            res = topo_bench.run_topo_microbench(rows_per_dev=rows_per_dev)
+            run_s = time.perf_counter() - t0
+            cross = res["cross_slice_bytes"]
+            if not (res["identical"] and res["slices"] == 2
+                    and cross["hier"] < cross["flat"]):
+                raise AssertionError(f"topo_bench at {rows_per_dev} rows a "
+                                     f"shard: {res}")
+            emit({"phase": "cli_and_benches", "step": "topo_bench",
+                  "rows_per_dev": rows_per_dev, **res, "run_s": run_s,
+                  "ring_launches": ring_exchange.LAUNCHES})
+
+        for checksum in (False, True):
+            t0 = time.perf_counter()
+            res = client_bench.run_client_microbench(
+                os.path.join(tmp, f"client_{int(checksum)}"),
+                checksum=checksum, **CLIENT_BENCH)
+            db = res["doorbell"]
+            if not (res["identical"] and 0 < db["writevs"] < db["frames"]):
+                raise AssertionError(f"client_bench: {res}")
+            w2d = res["wire_to_device_ms"]
+            thr = res["throughput_gb_s"]
+            emit({"phase": "cli_and_benches", "step": "client_bench", **res,
+                  "run_s": time.perf_counter() - t0,
+                  "ratios": {
+                      "cpu_python_over_native": res["cpu_speedup"],
+                      "w2d_native_over_python":
+                          w2d["native"] / w2d["python"],
+                      "throughput_native_over_python":
+                          thr["native"] / thr["python"]}})
+    emit({"phase": "cli_and_benches", "step": "done",
+          "wall_s": time.perf_counter() - t_phase,
+          "launches_by_path": launches})
+    return launches
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -2075,6 +2388,7 @@ def main() -> None:
     launches.update(phase_engine_q95(mesh, row))
     phase_small_runs(mesh)
     launches.update(phase_multihost(row, cfg, want_partitions))
+    launches.update(phase_cli_and_benches(row))
     row["launches"] = sum(launches.values())
     row["launches_by_path"] = launches
     row["bodies_by_path"] = PATH_BODIES

@@ -24,7 +24,9 @@ REFERENCE = ROOT / "sparkrdma_tpu"
 PORT = ROOT / "sparkrdma_tpu_torch"
 PREFIX = re.compile(r"\bsparkrdma_tpu\b")
 
-# the modules the engine reaches, lazily too, that import no JAX
+# the modules the engine reaches, lazily too, that import no JAX; then
+# stage retry (shuffle/recovery.py), the host benches and the registries
+# the CLI and the device benches reach
 LOCKSTEP = (
     "config.py",
     "rdd.py",
@@ -61,11 +63,26 @@ LOCKSTEP = (
     "shuffle/spark_compat.py",
     "shuffle/tenancy.py",
     "shuffle/writer.py",
+    "shuffle/recovery.py",
+    "shuffle/cold_bench.py",
+    "shuffle/ctrl_bench.py",
+    "shuffle/elastic_bench.py",
+    "shuffle/fetch_bench.py",
+    "shuffle/ha_bench.py",
+    "shuffle/iter_bench.py",
+    "shuffle/merge_bench.py",
+    "shuffle/plan_bench.py",
+    "shuffle/pushplan_bench.py",
+    "shuffle/serve_bench.py",
+    "shuffle/tenant_bench.py",
+    "shuffle/write_bench.py",
+    "utils/benchgate.py",
     "utils/codecs.py",
     "utils/ids.py",
     "utils/integrity.py",
     "utils/stats.py",
     "utils/tombstones.py",
+    "utils/trace_names.py",
 )
 
 # path -> [(text after the prefix rewrite, replacement, reason)]

@@ -1,9 +1,11 @@
 """The port stands alone: no module of ``sparkrdma_tpu_torch`` and no line
 of ``chip_smoke.py`` imports ``jax`` or anything of ``sparkrdma_tpu``.
-Checked on the sources' import statements and on a fresh interpreter's
+Checked on the sources' import statements, on import statements written
+inside strings (code a subprocess runs), and on a fresh interpreter's
 loaded modules, so it needs no GPU. This file imports no JAX itself."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -29,6 +31,20 @@ def _imported_roots(path: Path):
               in ("import_module", "__import__")
               and node.args and isinstance(node.args[0], ast.Constant)):
             yield node.lineno, str(node.args[0].value).split(".")[0]
+
+
+# an import statement inside a string: code a subprocess runs
+# (``python -c``), which the AST walk above does not see
+STRING_IMPORT = re.compile(
+    r"(?:^|[;\n])[ \t]*(?:import|from)[ \t]+(jax|jaxlib|sparkrdma_tpu)\b")
+
+
+def _string_imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            for match in STRING_IMPORT.finditer(node.value):
+                yield node.lineno, match.group(1)
 
 
 def test_port_has_sources():
@@ -64,6 +80,22 @@ def test_no_jax_or_reference_package_import(path):
     bad = [(line, root) for line, root in _imported_roots(path)
            if root in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[p.relative_to(ROOT).as_posix() for p in SOURCES])
+def test_no_jax_or_reference_import_inside_a_string(path):
+    bad = list(_string_imports(path))
+    assert not bad, f"{path.name} runs code importing {bad}"
+
+
+def test_string_import_check_sees_a_subprocess_source():
+    """The check flags the JAX package's block-server script, which a
+    subprocess runs from a string, and passes the port's."""
+    ref = ROOT / "sparkrdma_tpu" / "shuffle" / "client_bench.py"
+    assert [root for _, root in _string_imports(ref)] == ["sparkrdma_tpu"]
+    port = PORT / "shuffle" / "client_bench.py"
+    assert list(_string_imports(port)) == []
 
 
 def test_import_loads_no_jax_and_no_triton():

@@ -33,6 +33,7 @@ LOCKSTEP = port_host_plane.LOCKSTEP
 # modules, the port's own helpers, and two copies with changed regions
 PORTED = (
     "__init__.py",
+    "__main__.py",
     "engine.py",
     "models/__init__.py",
     "models/als.py",
@@ -53,8 +54,11 @@ PORTED = (
     "parallel/multihost.py",
     "parallel/topology.py",
     "runtime/shim_build.py",
+    "shuffle/client_bench.py",
+    "shuffle/device_bench.py",
     "shuffle/mesh_service.py",
     "shuffle/reader.py",
+    "shuffle/topo_bench.py",
     "utils/__init__.py",
     "utils/trace.py",
     "utils/u32.py",
