@@ -114,19 +114,39 @@ printing one JSON line; any failure raises and the exit code is not 0:
     checksums off and on: client CPU per GB, GB/s and wire-to-device ms
     of the Python and the native receive paths, identical, and their
     ratios, not gated;
-14. the kernel table line, then the device line last.
+14. analysis: the port's analysis suite (``sparkrdma_tpu_torch/analysis``)
+    on the card machine. ``python -m sparkrdma_tpu_torch.analysis
+    --model-check`` in a process of its own, clean, with its schedule
+    counts per scenario; both sanitized shims built through
+    ``runtime/shim_build.py`` and ``analysis/native_harness.py`` run under
+    each that built (ASan preloaded into that process only, which
+    imports no ``torch``); a kind that does not build prints one
+    ``"sanitizers": "unavailable: ..."`` line with the compiler's error
+    and runs no harness; then phase 10's engine stage,
+    cut to 256 MiB (8 maps of 32 MiB), as a ``DAGEngine`` job on
+    ``VirtualMesh(8)`` in a process (this script under
+    ``--lockgraph-worker``) that installs the port's lock-order shim
+    before it imports anything else of the port: every partition
+    byte-equal to the oracle, no lock-order cycle, its orderings, tracked
+    lock sites and walls printed, the kernel's launches counted under
+    ``analysis/lockgraph_engine`` and held to the plain version at every
+    block shape;
+15. the kernel table line, then the device line last.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
+import gc
 import hashlib
 import io
 import itertools
 import json
 import os
 import queue
+import re
 import socket
 import statistics
 import subprocess
@@ -139,6 +159,14 @@ import zlib
 import numpy as np
 import torch
 import torch.distributed as dist
+
+LG_WORKER_FLAG = "--lockgraph-worker"
+if __name__ == "__main__" and sys.argv[1:2] == [LG_WORKER_FLAG]:
+    # the analysis phase's engine stage runs under the port's lock-order
+    # shim, installed before anything else of the port is imported:
+    # ops/_build.py and parallel/topology.py create their locks at import
+    from sparkrdma_tpu_torch.analysis import lockgraph
+    lockgraph.install()
 
 from sparkrdma_tpu_torch.__main__ import main as cli_main
 from sparkrdma_tpu_torch.config import _KEYS as _CONF_KEYS
@@ -174,7 +202,7 @@ from sparkrdma_tpu_torch.parallel.device_plane import (
 )
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 from sparkrdma_tpu_torch.rdd import EngineContext
-from sparkrdma_tpu_torch.runtime import native
+from sparkrdma_tpu_torch.runtime import native, shim_build
 from sparkrdma_tpu_torch.shuffle import (
     client_bench,
     device_bench,
@@ -1134,14 +1162,14 @@ def _engine_cluster(executors: int = ENGINE_EXECUTORS):
             driver.stop()
 
 
-def _mesh_records():
+def _mesh_records(rows: int = MS_ROWS):
     """The stage's records from seed 0 (uniform random u64 keys, random
     payload bytes). Returns (keys, payload, seconds to generate)."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    keys = rng.integers(0, 2**64, MS_ROWS, dtype=np.uint64)
-    payload = np.frombuffer(rng.bytes(MS_ROWS * MS_PAYLOAD),
-                            np.uint8).reshape(MS_ROWS, MS_PAYLOAD)
+    keys = rng.integers(0, 2**64, rows, dtype=np.uint64)
+    payload = np.frombuffer(rng.bytes(rows * MS_PAYLOAD),
+                            np.uint8).reshape(rows, MS_PAYLOAD)
     return keys, payload, time.perf_counter() - t0
 
 
@@ -1415,14 +1443,15 @@ def _on_device(name: str, chosen: dict) -> None:
                              f"{chosen['degrades']}")
 
 
-def _engine_stage(keys: np.ndarray, payload: np.ndarray, reads: list):
+def _engine_stage(keys: np.ndarray, payload: np.ndarray, reads: list,
+                  map_rows: int = MS_MAP_ROWS):
     """The mesh-service stage as an engine job: map task ``m`` writes
-    records ``[m * MS_MAP_ROWS, (m + 1) * MS_MAP_ROWS)`` through the
-    writer; result task ``p`` drains partition ``p`` and returns ``(keys,
+    records ``[m * map_rows, (m + 1) * map_rows)`` through the writer;
+    result task ``p`` drains partition ``p`` and returns ``(keys,
     payload, remote bytes)``, appending its read's start and end to
     ``reads``."""
     def map_fn(ctx, writer, task_id):
-        rows = slice(task_id * MS_MAP_ROWS, (task_id + 1) * MS_MAP_ROWS)
+        rows = slice(task_id * map_rows, (task_id + 1) * map_rows)
         writer.write((keys[rows], payload[rows]))
 
     def reduce_fn(ctx, task_id):
@@ -2358,6 +2387,182 @@ def phase_cli_and_benches(row: dict) -> dict:
     return launches
 
 
+# the analysis phase: the engine stage's records cut to 256 MiB (8 maps of
+# 32 MiB, as device_bench's stage is), so the phase stays near 60 s
+LG_MAP_ROWS = (32 << 20) // (8 + MS_PAYLOAD)
+LG_PATH = "analysis/lockgraph_engine"
+ANALYSIS_TIMEOUT_S = 300     # per process, start to finish
+_MODELCHECK_LINE = re.compile(r"modelcheck: (\d+) schedule\(s\) enumerated "
+                              r"\+ (\d+) random walk\(s\) \[(.*)\]")
+
+
+def _analysis_static() -> dict:
+    """``python -m sparkrdma_tpu_torch.analysis --model-check`` in a process
+    of its own: it must exit 0 (no finding). Returns its seconds and the
+    schedules enumerated per scenario (``+``: the budget was hit)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mc_") as traces:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sparkrdma_tpu_torch.analysis",
+             "--model-check", "--trace-dir", traces],
+            capture_output=True, text=True, env=_child_env(), cwd=root,
+            timeout=ANALYSIS_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the analysis suite exited {proc.returncode}:"
+                             f"\n{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    m = _MODELCHECK_LINE.search(proc.stdout)
+    if m is None:
+        raise AssertionError(f"no modelcheck line: {proc.stdout[-2000:]}")
+    scenarios = dict(item.split(":") for item in m.group(3).split(", "))
+    return {"seconds": seconds, "schedules": int(m.group(1)),
+            "random_walks": int(m.group(2)), "by_scenario": scenarios,
+            "report": proc.stdout.strip().splitlines()[-1]}
+
+
+def _sanitizer_runs() -> dict:
+    """Both sanitized shims, built together through ``shim_build``, and
+    ``analysis/native_harness.py`` under each that built, in a process of
+    its own (ASan's runtime preloaded there, never here: libasan and the
+    CUDA driver do not mix). A kind whose build fails is printed as
+    unavailable with the compiler's error, and its harness counts as not
+    run; a harness that fails raises."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = {kind: pool.submit(shim_build.sanitized_shim_path, kind)
+                  for kind in ("asan", "ubsan")}
+        concurrent.futures.wait(builds.values())
+    runs = {"build_s": time.perf_counter() - t0}
+    for kind, build in builds.items():
+        try:
+            lib = build.result()
+        except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+            emit({"phase": "analysis", "sanitizer": kind,
+                  "sanitizers": f"unavailable: {e}"})
+            runs[kind] = "unavailable"
+            continue
+        env = _child_env()
+        if kind == "asan":
+            env["LD_PRELOAD"] = subprocess.run(
+                [os.environ.get("CXX", "g++"), "-print-file-name=libasan.so"],
+                capture_output=True, text=True, check=True).stdout.strip()
+            env["ASAN_OPTIONS"] = "detect_leaks=0"
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "sparkrdma_tpu_torch.analysis.native_harness", str(lib)],
+            capture_output=True, text=True, cwd=root, env=env,
+            timeout=ANALYSIS_TIMEOUT_S)
+        if proc.returncode != 0 or "all exercises passed" not in proc.stdout:
+            raise AssertionError(f"the {kind} harness failed (exit "
+                                 f"{proc.returncode}):\n{proc.stdout[-3000:]}"
+                                 f"{proc.stderr[-3000:]}")
+        runs[kind] = {"passed": True, "lib": lib.name,
+                      "seconds": time.perf_counter() - t1,
+                      "exercises": sum(ln.lstrip().startswith("ok:")
+                                       for ln in proc.stdout.splitlines())}
+    return runs
+
+
+def lockgraph_worker(out_path: str) -> None:
+    """The analysis phase's engine stage, in a process whose lock-order
+    shim went in before the port's imports (see the top of this file):
+    the records cut to ``LG_MAP_ROWS`` a map, a ``DAGEngine`` job on
+    ``VirtualMesh(8)``, every partition held byte-equal to the oracle;
+    writes the graph's verdict, the kernel's launches and shapes, and the
+    walls to ``out_path`` as JSON."""
+    from sparkrdma_tpu_torch.analysis import lockgraph
+
+    graph = lockgraph.current()
+    if graph is None:
+        raise AssertionError("the lock-order shim is not installed")
+    keys, payload, generate_s = _mesh_records(MS_MAPS * LG_MAP_ROWS)
+    t0 = time.perf_counter()
+    want = mesh_service.split_by_partition(_mesh_oracle(keys, payload),
+                                           MS_PARTITIONS, MS_PAYLOAD)
+    oracle_s = time.perf_counter() - t0
+    mesh = VirtualMesh(SHARDS)
+    with _engine_cluster() as (driver, execs):
+        engine = _mesh_engine(driver, execs, mesh)
+        reads = []
+        t0 = time.perf_counter()
+        out, launches, shapes = _launches(LG_PATH, lambda: engine.run(
+            _engine_stage(keys, payload, reads, LG_MAP_ROWS)))
+        job_s = time.perf_counter() - t0
+    lockgraph.uninstall()
+    chosen = _planes(engine)
+    _on_device(LG_PATH, chosen)
+    for p, ((k, v, remote), (wk, wv)) in enumerate(zip(out, want)):
+        if remote or not (np.array_equal(k, wk) and np.array_equal(v, wv)):
+            raise AssertionError(f"{LG_PATH}: partition {p} differs from "
+                                 f"the oracle ({remote} remote bytes)")
+    stages = {("map" if "shuffle" in e["args"] else "result"):
+              e["dur"] / 1e6 for e in engine.tracer.events("engine.stage")}
+    sites = sorted({o._site for o in gc.get_objects()
+                    if isinstance(o, lockgraph._TrackedLock)})
+    with open(out_path, "w") as f:
+        json.dump({
+            "rows": int(sum(len(k) for k, _, _ in out)),
+            "generate_s": generate_s, "oracle_s": oracle_s, "job_s": job_s,
+            "map_stage_s": stages.get("map"),
+            "result_stage_s": stages.get("result"),
+            "reduce_s": (max(end for _, end in reads)
+                         - min(start for start, _ in reads)),
+            "rounds": chosen["rounds"], "launches": launches,
+            "shapes": [[list(k), n] for k, n in sorted(shapes.items())],
+            "bodies": PATH_BODIES[LG_PATH],
+            "orderings": sorted(f"{a} -> {b}" for a, b in graph.edges()),
+            "tracked_sites": sites, "cycles": graph.cycles(),
+            "report": graph.format_cycles()}, f)
+
+
+def phase_analysis(row: dict) -> dict:
+    """The port's analysis suite on the card machine (module docstring,
+    phase 14). Returns the kernel's launches per path."""
+    t_phase = time.perf_counter()
+    static = _analysis_static()
+    emit({"phase": "analysis", "step": "static_and_modelcheck", **static})
+    emit({"phase": "analysis", "step": "sanitizers", **_sanitizer_runs()})
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lg_") as work:
+        out_path = os.path.join(work, "verdict.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), LG_WORKER_FLAG,
+             out_path], capture_output=True, text=True, env=_child_env(),
+            cwd=root, timeout=ANALYSIS_TIMEOUT_S)
+        process_s = time.perf_counter() - t0
+        if proc.returncode != 0 or not os.path.exists(out_path):
+            raise AssertionError(f"the lockgraph worker failed (exit "
+                                 f"{proc.returncode}):\n{proc.stdout[-3000:]}"
+                                 f"{proc.stderr[-3000:]}")
+        with open(out_path) as f:
+            res = json.load(f)
+    if res["cycles"]:
+        raise AssertionError(f"{LG_PATH}: {res['report']}")
+    shapes = {tuple(shape): n for shape, n in res.pop("shapes")}
+    PATH_BODIES[LG_PATH] = res.pop("bodies")
+    staged = MS_MAPS * LG_MAP_ROWS * (8 + MS_PAYLOAD)
+    emit({"phase": "analysis", "step": "lockgraph_engine",
+          "cut": f"the engine stage's records cut from 1 GiB to "
+                 f"{round(staged / 2**20)} MiB ({MS_MAPS} maps of "
+                 f"{LG_MAP_ROWS} rows), as device_bench's stage",
+          "executors": ENGINE_EXECUTORS, "partitions": MS_PARTITIONS,
+          **res, "distinct_orderings": len(res["orderings"]),
+          "process_s": process_s, "acyclic": True, "all_exact": True,
+          "reduce_gb_per_s": staged / res["reduce_s"] / 1e9,
+          "ring_launches": res["launches"],
+          "ring_shapes": _check_path_shapes(row, LG_PATH, shapes)})
+    emit({"phase": "analysis", "step": "done",
+          "wall_s": time.perf_counter() - t_phase})
+    return {LG_PATH: res["launches"]}
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -2389,6 +2594,7 @@ def main() -> None:
     phase_small_runs(mesh)
     launches.update(phase_multihost(row, cfg, want_partitions))
     launches.update(phase_cli_and_benches(row))
+    launches.update(phase_analysis(row))
     row["launches"] = sum(launches.values())
     row["launches_by_path"] = launches
     row["bodies_by_path"] = PATH_BODIES
@@ -2401,5 +2607,7 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == MH_WORKER_FLAG:
         multihost_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif len(sys.argv) > 1 and sys.argv[1] == LG_WORKER_FLAG:
+        lockgraph_worker(sys.argv[2])
     else:
         main()

@@ -26,7 +26,7 @@ PREFIX = re.compile(r"\bsparkrdma_tpu\b")
 
 # the modules the engine reaches, lazily too, that import no JAX; then
 # stage retry (shuffle/recovery.py), the host benches and the registries
-# the CLI and the device benches reach
+# the CLI and the device benches reach; then the analysis suite
 LOCKSTEP = (
     "config.py",
     "rdd.py",
@@ -83,6 +83,17 @@ LOCKSTEP = (
     "utils/stats.py",
     "utils/tombstones.py",
     "utils/trace_names.py",
+    "analysis/core.py",
+    "analysis/wire.py",
+    "analysis/concurrency.py",
+    "analysis/drift.py",
+    "analysis/resources.py",
+    "analysis/lockgraph.py",
+    "analysis/scheduler.py",
+    "analysis/modelcheck.py",
+    "analysis/native_harness.py",
+    "analysis/__init__.py",
+    "analysis/__main__.py",
 )
 
 # path -> [(text after the prefix rewrite, replacement, reason)]
@@ -97,6 +108,36 @@ HUNKS = {
         "_LIB_PATH = str(host_shim_path())\n",
         "the port never loads the JAX package's libtpushuffle.so: it "
         "builds its own from csrc/ into build/ and loads that"),
+    ],
+    "utils/trace_names.py": [(
+        '    "writer.publish",\n})\n',
+        '    "writer.publish",\n'
+        "    # emitted only by the port: its host drivers' round phases\n"
+        "    # (parallel/device_plane.py) and its mesh service's host work\n"
+        "    # (shuffle/mesh_service.py)\n"
+        '    "exchange.collect",\n'
+        '    "exchange.merge",\n'
+        '    "exchange.stage",\n'
+        '    "mesh.decode",\n'
+        '    "mesh.pack",\n'
+        '    "mesh.partition",\n'
+        '    "mesh.unpack",\n'
+        "})\n",
+        "names the port's host drivers and mesh service emit that the "
+        "reference lacks: the drift pass holds every emitted span to "
+        "this registry"),
+    ],
+    "analysis/concurrency.py": [(
+        '    "sparkrdma_tpu_torch/utils/trace.py",\n]\n',
+        '    "sparkrdma_tpu_torch/utils/trace.py",\n'
+        "    # the port's own modules that lock or keep per-thread state\n"
+        '    "sparkrdma_tpu_torch/ops/_build.py",\n'
+        '    "sparkrdma_tpu_torch/ops/ring_exchange.py",\n'
+        '    "sparkrdma_tpu_torch/parallel/topology.py",\n'
+        "]\n",
+        "the port's kernel build, the kernel's per-thread launch state "
+        "and the cross-slice counter are written for the port and lock "
+        "or keep per-thread state, so the lints scan them too"),
     ],
 }
 

@@ -38,7 +38,6 @@ bounds a round.
 from __future__ import annotations
 
 import warnings
-from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -462,14 +461,6 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
 # the overlapped host drivers
 # ---------------------------------------------------------------------------
 
-@contextmanager
-def _span(tracer, name: str, **args):
-    """One host span on the driver's tracer and, for ``torch.profiler``,
-    a ``record_function`` span of the same name."""
-    with tracer.span(name, "exchange", **args), record_function(name):
-        yield
-
-
 class _RoundIO:
     """Host staging of a driver's rounds on ``device``.
 
@@ -655,9 +646,11 @@ def run_fused_exchange_rounds(mesh: VirtualMesh, blocks, row_words: int,
         """Stage one round and queue its step and its download; nothing
         here waits for the card."""
         q = _slot_rows(dchunk, n, per_round // n, out_factor)
-        with _span(tracer, "exchange.round", round=r, rows=len(chunk),
-                   slot_rows=q):
-            with _span(tracer, "exchange.stage", round=r):
+        with tracer.span("exchange.round", "exchange", round=r,
+                         rows=len(chunk), slot_rows=q), \
+                record_function("exchange.round"):
+            with tracer.span("exchange.stage", "exchange", round=r), \
+                    record_function("exchange.stage"):
                 rows_d, dest_d = io.upload(r % 2, chunk, dchunk, n,
                                            per_round)
             handle = io.download(r % 2, step(rows_d, dest_d, q))
@@ -666,7 +659,8 @@ def run_fused_exchange_rounds(mesh: VirtualMesh, blocks, row_words: int,
 
     def collect(in_flight) -> None:
         r, handle = in_flight
-        with _span(tracer, "exchange.collect", round=r):
+        with tracer.span("exchange.collect", "exchange", round=r), \
+                record_function("exchange.collect"):
             out, counts, overflowed = io.collect(handle)
             if overflowed.any():
                 raise OverflowError(
@@ -695,7 +689,8 @@ def run_fused_exchange_rounds(mesh: VirtualMesh, blocks, row_words: int,
 
     if rounds == 0:
         return [np.zeros((0, row_words), np.uint32) for _ in range(n)], 0
-    with _span(tracer, "exchange.merge", rounds=rounds):
+    with tracer.span("exchange.merge", "exchange", rounds=rounds), \
+            record_function("exchange.merge"):
         return _merged(runs, key_words, row_words), rounds
 
 
@@ -824,10 +819,13 @@ def run_hierarchical_exchange(mesh: VirtualMesh,
                     continue
                 local = dchunk - lo   # slice-local destination shards
                 q = _slot_rows(local, ns, per_round // ns, out_factor)
-                with _span(tracer, "exchange.round", round=rounds,
-                           phase=phase, slice=s, rows=len(chunk),
-                           slot_rows=q):
-                    with _span(tracer, "exchange.stage", round=rounds):
+                with tracer.span("exchange.round", "exchange",
+                                 round=rounds, phase=phase, slice=s,
+                                 rows=len(chunk), slot_rows=q), \
+                        record_function("exchange.round"):
+                    with tracer.span("exchange.stage", "exchange",
+                                     round=rounds), \
+                            record_function("exchange.stage"):
                         rows_d, dest_d = io.upload(s, chunk, local, ns,
                                                    per_round)
                     handle = io.download(s, step(rows_d, dest_d, q))
@@ -842,8 +840,9 @@ def run_hierarchical_exchange(mesh: VirtualMesh,
             charge()
             for s, lo, chunk, dchunk, handle in batch:
                 try:
-                    with _span(tracer, "exchange.collect", round=rounds,
-                               slice=s):
+                    with tracer.span("exchange.collect", "exchange",
+                                     round=rounds, slice=s), \
+                            record_function("exchange.collect"):
                         collect(s, lo, handle)
                 except OverflowError:
                     # degrade ONLY this slice's rows to host serving
@@ -889,5 +888,6 @@ def run_hierarchical_exchange(mesh: VirtualMesh,
                        cross_slice_bytes=inter_rows * row_bytes,
                        degraded_slices=sorted(degraded))
 
-    with _span(tracer, "exchange.merge", rounds=rounds):
+    with tracer.span("exchange.merge", "exchange", rounds=rounds), \
+            record_function("exchange.merge"):
         return _merged(runs, key_words, row_words), rounds

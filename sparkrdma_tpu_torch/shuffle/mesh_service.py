@@ -189,8 +189,9 @@ def run_mesh_reduce_fused(managers: Sequence, handle: ShuffleHandle,
             pending = 0
             per_round = rows_per_round * n_dev
             delivered: set = set()
-            for k, p in _spanned(_iter_committed_batches(
-                    managers, handle, delivered), tracer, "mesh.decode"):
+            for k, p in _spanned(
+                    _iter_committed_batches(managers, handle, delivered),
+                    lambda: tracer.span("mesh.decode", "mesh")):
                 with tracer.span("mesh.pack", "mesh"):
                     rows = _rows_to_u32(k, p)
                 with tracer.span("mesh.partition", "mesh"):
@@ -264,8 +265,9 @@ def run_mesh_reduce_hier(managers: Sequence, handle: ShuffleHandle,
     part_bytes = np.zeros((topology.num_slices, handle.num_partitions),
                           dtype=np.int64)
     delivered: set = set()
-    for i, k, p in _spanned(_iter_committed_batches_indexed(
-            managers, handle, delivered), tracer, "mesh.decode"):
+    for i, k, p in _spanned(
+            _iter_committed_batches_indexed(managers, handle, delivered),
+            lambda: tracer.span("mesh.decode", "mesh")):
         home = topology.slice_of_slot(i, num_mgrs)
         with tracer.span("mesh.partition", "mesh"):
             parts = np.asarray(partitioner(k), dtype=np.int64)
@@ -298,12 +300,13 @@ def run_mesh_reduce_hier(managers: Sequence, handle: ShuffleHandle,
     return _unpacked(per_device, handle, partitioner, tracer)
 
 
-def _spanned(batches, tracer, name: str):
+def _spanned(batches, span):
     """``batches`` with the work of producing each one (for committed
-    outputs: the resolver's read and the decode) under a ``name`` span."""
+    outputs: the resolver's read and the decode) under a span that the
+    zero-argument ``span`` opens, so each caller names it as a literal."""
     it = iter(batches)
     while True:
-        with tracer.span(name, "mesh"):
+        with span():
             batch = next(it, None)
         if batch is None:
             return

@@ -38,6 +38,16 @@ SPANS = frozenset({
     "write.spill",
     "writer.commit",
     "writer.publish",
+    # emitted only by the port: its host drivers' round phases
+    # (parallel/device_plane.py) and its mesh service's host work
+    # (shuffle/mesh_service.py)
+    "exchange.collect",
+    "exchange.merge",
+    "exchange.stage",
+    "mesh.decode",
+    "mesh.pack",
+    "mesh.partition",
+    "mesh.unpack",
 })
 
 # Point-in-time instants (fault/decision markers).

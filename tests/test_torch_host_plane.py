@@ -9,6 +9,9 @@ pool-lease memory by the native fetch engine), and frees every lease.
 The native shim is the port's own, built from ``csrc/`` into ``build/``.
 """
 
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -173,3 +176,21 @@ def test_shim_build_failure_falls_back(tmp_path, monkeypatch, caplog):
     path = shim_build.host_shim_path()
     assert not path.exists()
     assert "host shim build failed" in caplog.text
+
+
+def test_sanitized_shim_builds_and_passes_the_ubsan_harness():
+    """``sanitized_shim_path("ubsan")`` builds ``csrc/*.cpp`` with
+    ``csrc/Makefile``'s sanitizer flags into ``build/`` (apart from the
+    uninstrumented library), and the native harness passes under it; a
+    UBSan library needs no runtime preloaded."""
+    path = shim_build.sanitized_shim_path("ubsan")
+    assert path.exists() and path.parent == shim_build.BUILD_DIR
+    assert path.name.startswith("libtpushuffle_ubsan-")
+    assert path != shim_build.host_shim_path()
+    assert shim_build.sanitized_shim_path("ubsan") == path  # found, kept
+    proc = subprocess.run(
+        [sys.executable, "-m", "sparkrdma_tpu_torch.analysis.native_harness",
+         str(path)], cwd=shim_build._ROOT, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "all exercises passed" in proc.stdout

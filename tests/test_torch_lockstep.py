@@ -3,7 +3,9 @@
 Every module in ``scripts/port_host_plane.py``'s ``LOCKSTEP`` list must
 equal its original in ``sparkrdma_tpu/`` with the package prefix
 rewritten (``sparkrdma_tpu`` -> ``sparkrdma_tpu_torch``) and the script's
-named hunks applied; there is one, ``runtime/native.py``'s ``_LIB_PATH``.
+named hunks applied; there are three: ``runtime/native.py``'s
+``_LIB_PATH``, the port-only span names in ``utils/trace_names.py`` and
+the port's own threaded modules in ``analysis/concurrency.py``.
 Every other ``.py`` of the port must be in ``PORTED``, the modules
 written for the port, so that no new file escapes both lists. Two ported
 modules are copies with a few changed regions, and those are checked
@@ -82,15 +84,59 @@ def test_copy_equals_reference(path):
 
 
 def test_the_one_named_hunk():
-    """Exactly one hunk is allowed, with its reason: the shim's path."""
+    """Three files carry hunks, one each, with its reason: the shim's
+    path, the port-only span names, the port's threaded modules."""
     hunks = port_host_plane.HUNKS
-    assert list(hunks) == ["runtime/native.py"]
+    assert list(hunks) == ["runtime/native.py", "utils/trace_names.py",
+                           "analysis/concurrency.py"]
+    assert all(len(v) == 1 for v in hunks.values())
     ((old, new, reason),) = hunks["runtime/native.py"]
     assert old.startswith("_LIB_PATH =") and "build/" in new
     assert "libtpushuffle.so" in reason
     native = (PORT / "runtime" / "native.py").read_text()
     assert old not in native and new in native
     assert "sparkrdma_tpu/runtime" not in native
+
+
+def _added_lines(path):
+    """The lines the path's one hunk adds, stripped, comments dropped."""
+    ((old, new, reason),) = port_host_plane.HUNKS[path]
+    assert set(old.splitlines()) <= set(new.splitlines())
+    added = [ln.strip() for ln in new.splitlines()
+             if ln not in old.splitlines()]
+    return [ln for ln in added if not ln.startswith("#")], reason
+
+
+def test_trace_names_hunk_adds_only_port_span_names():
+    """The registry's hunk only adds the seven span names the port's host
+    drivers and mesh service emit; every other line is the reference's."""
+    added, reason = _added_lines("utils/trace_names.py")
+    assert added == ['"exchange.collect",', '"exchange.merge",',
+                     '"exchange.stage",', '"mesh.decode",', '"mesh.pack",',
+                     '"mesh.partition",', '"mesh.unpack",']
+    assert "reference lacks" in reason
+
+
+def test_concurrency_hunk_only_extends_threaded_modules():
+    """The lint's hunk keeps the reference's 24 modules and adds the
+    port's own modules that lock or keep per-thread state."""
+    added, reason = _added_lines("analysis/concurrency.py")
+    assert added == ['"sparkrdma_tpu_torch/ops/_build.py",',
+                     '"sparkrdma_tpu_torch/ops/ring_exchange.py",',
+                     '"sparkrdma_tpu_torch/parallel/topology.py",']
+    assert reason
+    ast_mod = ast.parse((PORT / "analysis" / "concurrency.py").read_text())
+    listed = next(ast.literal_eval(n.value) for n in ast_mod.body
+                  if isinstance(n, ast.Assign)
+                  and n.targets[0].id == "THREADED_MODULES")
+    ref = ast.parse((REFERENCE / "analysis" / "concurrency.py").read_text())
+    ref_listed = next(ast.literal_eval(n.value) for n in ref.body
+                      if isinstance(n, ast.Assign)
+                      and n.targets[0].id == "THREADED_MODULES")
+    assert len(ref_listed) == 24
+    assert listed[:24] == [port_host_plane.PREFIX.sub(
+        "sparkrdma_tpu_torch", m) for m in ref_listed]
+    assert all((ROOT / m).exists() for m in listed)
 
 
 def test_every_port_module_is_listed():
