@@ -23,26 +23,38 @@ printing one JSON line; any failure raises and the exit code is not 0:
    host clock and one traced step (device time per layer span, top
    kernels, idle share); a small run held bit for bit to
    ``numpy_terasort``; a streamed run of 3 rounds with a partial tail;
-5. kernel_chunked: the kernel against its plain version at the ALS
+5. streamed: ``run_terasort_streamed`` over the main path's 1 GiB of rows
+   in 4 rounds (a quarter of its rows a shard, the tail padded),
+   pipelined and with ``pipeline_rounds=False``: byte-equal outputs, each
+   holding ``verify_terasort``'s contract, their ``phase_times``, and
+   the card's memory peak of each run within one round's peak + 10%
+   unpipelined and two rounds' + 10% pipelined;
+6. bench: ``python -m sparkrdma_tpu_torch.bench`` (secondaries skipped)
+   as a process of its own, its JSON line checked (the headline metric,
+   ``platform`` ``cuda``, the ``ring`` transport, a ``vs_baseline``) and
+   printed; then the bench's four device secondaries (PageRank, the
+   join, the TPC-DS star, ALS) in this process through its own builders,
+   none recording an error;
+7. kernel_chunked: the kernel against its plain version at the ALS
    path's block shape, timed like phase 3;
-6. the workloads of BASELINE.md configs #3-#5, each through its entry
+8. the workloads of BASELINE.md configs #3-#5, each through its entry
    point with ``impl="auto"`` (the ring kernel on the card), its kernel
    launches counted per block shape, the kernel held to its plain
    version at every block shape the path gave it, its result held to its
    numpy oracle, then warm steps timed and one traced: ALS half-step over
    100M ratings, PageRank over 2**27 edges, the shuffle join, the TPC-DS
    star;
-7. the TPC-DS q95 and q64 plans (BASELINE.md config #4), the same way:
+9. the TPC-DS q95 and q64 plans (BASELINE.md config #4), the same way:
    q95 over SF10's 7,197,568 web_sales rows, q64 at the largest size its
    16-bit keys admit, each per-shard partial held to a numpy oracle;
-8. the device plane's host drivers over 1 GiB of 100-byte rows (BASELINE.md
+10. the device plane's host drivers over 1 GiB of 100-byte rows (BASELINE.md
    config #1's size) in rounds sized from a 64 MiB device memory budget:
    ``run_fused_exchange`` pipelined and sequential (byte-equal, each shard
    equal to a numpy stable sort of its rows), with the host's time per
    round in staging, dispatch, collect and merge; then
    ``run_hierarchical_exchange`` over two slices of 4 shards, byte-equal
    to the flat driver, with its cross-slice bytes;
-9. the mesh shuffle service (``shuffle/mesh_service.py``) over an engine
+11. the mesh shuffle service (``shuffle/mesh_service.py``) over an engine
    shuffle stage: 1 GiB of 100-byte records written as 8 map outputs of
    128 MiB through the writers of 4 executors on localhost (a
    ``SparkCompatShuffleManager`` driver and executors, spill files under
@@ -57,7 +69,7 @@ printing one JSON line; any failure raises and the exit code is not 0:
    hierarchical run), then ``split_by_partition`` and
    ``CachedPartitionReader`` over run 1's result, and ``read_to_device``
    of the 8 committed outputs (1 GiB) with its GB/s;
-10. engine: the same records as a real engine job (``DAGEngine`` over a
+12. engine: the same records as a real engine job (``DAGEngine`` over a
     ``SparkCompatShuffleManager`` driver and 4 executors on localhost,
     ``mesh=VirtualMesh(8)``, the default cost model and budget): 8 map
     tasks write their 128 MiB through the writer into spill files, 200
@@ -70,7 +82,7 @@ printing one JSON line; any failure raises and the exit code is not 0:
     TPC-DS q95 as an engine job (``build_q95_job`` at SF10's web_sales
     rows) through the same engine, against ``numpy_q95``, every shuffle
     on the device plane with no degrade;
-11. small runs of every workload against their numpy oracles, and small
+13. small runs of every workload against their numpy oracles, and small
     engine jobs under the mesh engine: the star and q64 plans (4
     partitions, so a round's source shard sends to one or two
     destinations and the ring's slots grow to the largest pair), the
@@ -78,14 +90,14 @@ printing one JSON line; any failure raises and the exit code is not 0:
     over 2**20 rows, each on the device plane with no degrade; and a
     skewed stage whose receive overflows and degrades to the host plane,
     still exact;
-12. multihost: the multi-process path (``parallel/multihost.py``) with two
+14. multihost: the multi-process path (``parallel/multihost.py``) with two
     worker processes on the one card (this script under
     ``--multihost-worker``), 4 shards each, a global mesh of 8 whose ring
     exchange launches the kernel over each process's own shards and
     writes through CUDA IPC peer pointers into the other's receive arena:
     ``run_multihost_terasort`` at the main path's 1 GiB, each global
     shard digest-equal to the single-process ``VirtualMesh(8)`` step over
-    the same rows; the mesh-service stage (phase 9's records, maps 0-3
+    the same rows; the mesh-service stage (phase 11's records, maps 0-3
     written in worker 0, 4-7 in worker 1, the driver in worker 0) through
     ``run_multihost_mesh_reduce`` one shot and in rounds, each partition
     digest-equal to the oracle, the topology two slices and its
@@ -93,7 +105,7 @@ printing one JSON line; any failure raises and the exit code is not 0:
     to the plain move and timed at every block shape they ran at, one
     process at a time (the other waits at a barrier), into the peers'
     arenas and into a local buffer;
-13. cli_and_benches: the command line and the device benches.
+15. cli_and_benches: the command line and the device benches.
     ``python -m sparkrdma_tpu_torch`` ``info`` (must name the card),
     ``config``, ``selftest``, ``engine-demo`` and ``rdd-demo`` as
     processes started together, each exiting 0 and verified; ``demo``
@@ -114,7 +126,7 @@ printing one JSON line; any failure raises and the exit code is not 0:
     checksums off and on: client CPU per GB, GB/s and wire-to-device ms
     of the Python and the native receive paths, identical, and their
     ratios, not gated;
-14. analysis: the port's analysis suite (``sparkrdma_tpu_torch/analysis``)
+16. analysis: the port's analysis suite (``sparkrdma_tpu_torch/analysis``)
     on the card machine. ``python -m sparkrdma_tpu_torch.analysis
     --model-check`` in a process of its own, clean, with its schedule
     counts per scenario; both sanitized shims built through
@@ -122,7 +134,7 @@ printing one JSON line; any failure raises and the exit code is not 0:
     each that built (ASan preloaded into that process only, which
     imports no ``torch``); a kind that does not build prints one
     ``"sanitizers": "unavailable: ..."`` line with the compiler's error
-    and runs no harness; then phase 10's engine stage,
+    and runs no harness; then phase 12's engine stage,
     cut to 256 MiB (8 maps of 32 MiB), as a ``DAGEngine`` job on
     ``VirtualMesh(8)`` in a process (this script under
     ``--lockgraph-worker``) that installs the port's lock-order shim
@@ -131,7 +143,7 @@ printing one JSON line; any failure raises and the exit code is not 0:
     lock sites and walls printed, the kernel's launches counted under
     ``analysis/lockgraph_engine`` and held to the plain version at every
     block shape;
-15. the kernel table line, then the device line last.
+17. the kernel table line, then the device line last.
 """
 
 from __future__ import annotations
@@ -168,6 +180,7 @@ if __name__ == "__main__" and sys.argv[1:2] == [LG_WORKER_FLAG]:
     from sparkrdma_tpu_torch.analysis import lockgraph
     lockgraph.install()
 
+from sparkrdma_tpu_torch import bench
 from sparkrdma_tpu_torch.__main__ import main as cli_main
 from sparkrdma_tpu_torch.config import _KEYS as _CONF_KEYS
 from sparkrdma_tpu_torch.config import TpuShuffleConf
@@ -640,6 +653,166 @@ def phase_main_path(cfg: TeraSortConfig, row: dict) -> int:
                                   numpy_terasort(rows, SHARDS))
     emit({"phase": "checks", "small_bit_exact": True,
           "streamed_rounds": rounds, "streamed_bit_exact": True})
+    return launches
+
+
+STREAMED_ROUNDS = 4           # the streamed phase's rounds over 1 GiB
+PEAK_SLACK = 1.10             # a streamed run's peak over its bound
+
+
+def _peak_base() -> int:
+    """Reset the card's peak-memory counter; returns the bytes allocated
+    now, which the peak read after counts from."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _verify_merged(merged: list, rows: np.ndarray) -> None:
+    """``verify_terasort``'s global-sort contract over a streamed run's
+    per-shard outputs: each shard padded to one length, its row count
+    in its first count column."""
+    width = rows.shape[1]
+    padded = np.zeros((SHARDS, max(len(m) for m in merged), width),
+                      rows.dtype)
+    counts = np.zeros((SHARDS, SHARDS), np.int64)
+    for d, m in enumerate(merged):
+        padded[d, :len(m)] = m
+        counts[d, 0] = len(m)
+    verify_terasort(padded.reshape(-1, width), counts, rows, SHARDS)
+
+
+def phase_streamed(cfg: TeraSortConfig, row: dict) -> dict:
+    """``run_terasort_streamed`` over the main path's 1 GiB of rows in
+    ``STREAMED_ROUNDS`` rounds (a quarter of the main path's rows a
+    shard, the last round padded), pipelined and with
+    ``pipeline_rounds=False``: the two outputs byte-equal, each holding
+    ``verify_terasort``'s contract; each run's ``phase_times``, wall and
+    device memory peak against one round's (a round's upload, step and
+    read-back alone): within one round's peak + 10% unpipelined, two
+    rounds' + 10% pipelined; the kernel's launches per run, every block
+    shape held to the plain version."""
+    mesh = VirtualMesh(SHARDS)
+    rows = generate_rows(cfg, SHARDS, seed=0)
+    scfg = TeraSortConfig(
+        rows_per_device=-(-cfg.rows_per_device // STREAMED_ROUNDS))
+    step = make_terasort_step(mesh, scfg)
+    chunk = rows[:SHARDS * scfg.rows_per_device]
+    step(rows_from_numpy(chunk, mesh))           # warm-up: allocator pools
+    base = _peak_base()
+    out, counts, overflowed = step(rows_from_numpy(chunk, mesh))
+    rows_to_numpy(out), counts.cpu(), overflowed.cpu()
+    del out, counts, overflowed
+    one_round = torch.cuda.max_memory_allocated() - base
+    runs, outputs, launches = {}, {}, {}
+    for name, pipelined in (("pipelined", True), ("sequential", False)):
+        path = f"streamed/{name}"
+        times = {}
+        base = _peak_base()
+        t0 = time.perf_counter()
+        (merged, rounds), launches[path], shapes = _launches(
+            path, lambda: run_terasort_streamed(
+                mesh, scfg, rows, pipeline_rounds=pipelined,
+                phase_times=times))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        if rounds != STREAMED_ROUNDS:
+            raise AssertionError(f"{path}: {rounds} rounds, expected "
+                                 f"{STREAMED_ROUNDS}")
+        bound = (1 if not pipelined else 2) * one_round * PEAK_SLACK
+        if peak > bound:
+            raise AssertionError(f"{path}: device peak {peak} bytes over "
+                                 f"{bound:.0f} (one round {one_round})")
+        _verify_merged(merged, rows)
+        outputs[name] = merged
+        runs[name] = {"wall_s": wall, "phase_times": times,
+                      "peak_device_bytes": peak,
+                      "peak_over_one_round": peak / one_round,
+                      "ring_launches": launches[path],
+                      "ring_shapes": _check_path_shapes(row, path, shapes)}
+    for d in range(SHARDS):
+        if not np.array_equal(outputs["pipelined"][d],
+                              outputs["sequential"][d]):
+            raise AssertionError(f"streamed shard {d}: pipelined and "
+                                 "sequential outputs differ")
+    emit({"phase": "streamed", "rows": len(rows),
+          "rows_per_device": scfg.rows_per_device,
+          "rounds": STREAMED_ROUNDS,
+          "tail_pad_rows": STREAMED_ROUNDS * SHARDS * scfg.rows_per_device
+          - len(rows),
+          "one_round_peak_bytes": one_round, "runs": runs,
+          "byte_equal": True, "verified": True})
+    return launches
+
+
+BENCH_TIMEOUT_S = 600          # the bench process, start to finish
+BENCH_SECONDARIES = (
+    ("pagerank", "pagerank_edges_per_s", bench.bench_pagerank, 5),
+    ("join", "join_rows_per_s", bench.bench_join, 3),
+    ("tpcds", "tpcds_fact_rows_per_s", bench.bench_tpcds, 3),
+)
+
+
+def phase_bench(row: dict) -> dict:
+    """``python -m sparkrdma_tpu_torch.bench`` with the secondaries
+    skipped, in a process of its own: its last line must parse and carry
+    the headline metric, a value above 0, ``platform`` ``cuda``, the
+    ``ring`` transport and a ``vs_baseline``; the line is printed. Then
+    the four device secondaries (PageRank, the join, the TPC-DS star,
+    ALS) in this process through the bench module's own builders, each
+    under ``_launches`` (paths ``bench/<name>``), every block shape held
+    to the plain version; any secondary's recorded error fails the
+    phase."""
+    torch.cuda.empty_cache()
+    env = dict(_child_env(), BENCH_SKIP_SECONDARY="1")
+    for key in [k for k in env if k.startswith("BENCH_")
+                and k != "BENCH_SKIP_SECONDARY"]:
+        del env[key]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sparkrdma_tpu_torch.bench"], env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"bench exited {proc.returncode}: "
+                             f"{proc.stdout[-600:]} {proc.stderr[-1500:]}")
+    rec = json.loads(lines[-1])
+    detail = rec["detail"]
+    if not (rec["metric"] == "terasort_shuffle_throughput_per_chip"
+            and rec["value"] > 0 and detail["platform"] == "cuda"
+            and detail["exchange_impl"] == "ring"
+            and rec.get("vs_baseline")):
+        raise AssertionError(f"bench line fails its checks: {lines[-1]}")
+    print(lines[-1], flush=True)
+    emit({"phase": "bench", "step": "headline", "wall_s": wall,
+          "value": rec["value"], "vs_baseline": rec["vs_baseline"],
+          "tpu_step_s": detail["tpu_step_s"],
+          "tpu_step_latency_s": detail["tpu_step_latency_s"],
+          "cpu_baseline_s": detail["cpu_baseline_s"]})
+
+    mesh = VirtualMesh(SHARDS)
+    found, launches, shapes_by_path = {}, {}, {}
+
+    def secondary(prefix: str, fn) -> None:
+        fn()
+        if prefix + "_error" in found:
+            raise AssertionError(f"bench secondary {prefix}: "
+                                 f"{found[prefix + '_error']}")
+
+    for prefix, rate_key, build, reps in BENCH_SECONDARIES:
+        path = f"bench/{prefix}"
+        _, launches[path], shapes = _launches(path, lambda: secondary(
+            prefix, lambda: bench._bench_secondary(
+                found, prefix, rate_key, lambda: build(mesh, SHARDS, True),
+                reps)))
+        shapes_by_path[path] = _check_path_shapes(row, path, shapes)
+    _, launches["bench/als"], shapes = _launches("bench/als", lambda: secondary(
+        "als", lambda: bench._bench_als(found, mesh, SHARDS, True)))
+    shapes_by_path["bench/als"] = _check_path_shapes(row, "bench/als", shapes)
+    emit({"phase": "bench", "step": "secondaries", "detail": found,
+          "launches_by_path": launches, "ring_shapes": shapes_by_path})
     return launches
 
 
@@ -1259,7 +1432,7 @@ def _mesh_run(name: str, row: dict, launches: dict, fn) -> tuple:
 def phase_mesh_service(mesh: VirtualMesh, row: dict, keys: np.ndarray,
                        payload: np.ndarray, generate_s: float) -> tuple:
     """The mesh shuffle service over one engine shuffle stage (see the
-    module docstring, phase 9): ``keys`` and ``payload`` written by
+    module docstring, phase 11): ``keys`` and ``payload`` written by
     ``_mesh_stage`` on a cluster of their own. Returns the kernel's
     launches per path and the per-shard oracle."""
     with _engine_cluster(MS_EXECUTORS) as (driver, execs):
@@ -1475,7 +1648,7 @@ def _engine_stage(keys: np.ndarray, payload: np.ndarray, reads: list,
 def phase_engine(mesh: VirtualMesh, row: dict, keys: np.ndarray,
                  payload: np.ndarray, want: list) -> dict:
     """The mesh-service stage as a real engine job (see the module
-    docstring, phase 10). Returns the kernel's launches per path."""
+    docstring, phase 12). Returns the kernel's launches per path."""
     if native.LIB is None:
         raise AssertionError(f"the native shim did not load from "
                              f"{native._LIB_PATH}")
@@ -1979,7 +2152,7 @@ def _terasort_reference(cfg: TeraSortConfig) -> list:
 
 def phase_multihost(row: dict, cfg: TeraSortConfig,
                     want_partitions: dict) -> dict:
-    """The multi-process path (module docstring, phase 12). Returns the
+    """The multi-process path (module docstring, phase 14). Returns the
     kernel's launches per path."""
     t0 = time.perf_counter()
     want_ts = _terasort_reference(cfg)
@@ -2316,7 +2489,7 @@ def _bench_run(row: dict, path: str, fn) -> tuple:
 
 
 def phase_cli_and_benches(row: dict) -> dict:
-    """The CLI and the device benches (module docstring, phase 13).
+    """The CLI and the device benches (module docstring, phase 15).
     Returns the kernel's launches per path."""
     t_phase = time.perf_counter()
     launches = {}
@@ -2520,7 +2693,7 @@ def lockgraph_worker(out_path: str) -> None:
 
 def phase_analysis(row: dict) -> dict:
     """The port's analysis suite on the card machine (module docstring,
-    phase 14). Returns the kernel's launches per path."""
+    phase 16). Returns the kernel's launches per path."""
     t_phase = time.perf_counter()
     static = _analysis_static()
     emit({"phase": "analysis", "step": "static_and_modelcheck", **static})
@@ -2569,6 +2742,8 @@ def main() -> None:
     cfg = TeraSortConfig(rows_per_device=DATA_BYTES // 100 // SHARDS)
     row = phase_kernel(cfg)
     launches = {"terasort": phase_main_path(cfg, row)}
+    launches.update(phase_streamed(cfg, row))
+    launches.update(phase_bench(row))
     phase_kernel_chunked(row)
     mesh = VirtualMesh(SHARDS)
     launches["chunked/als"] = phase_als(mesh, row)

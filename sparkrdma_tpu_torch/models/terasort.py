@@ -122,12 +122,24 @@ def run_terasort(mesh: VirtualMesh, cfg: TeraSortConfig, impl: str = "auto",
 
 def run_terasort_streamed(mesh: VirtualMesh, cfg: TeraSortConfig,
                           rows: np.ndarray, impl: str = "auto",
+                          pipeline_rounds: bool = True,
+                          phase_times: Optional[dict] = None,
                           ) -> Tuple[list, int]:
     """TeraSort a dataset LARGER than one round's capacity: R rounds of
     the one-round step, each bounded to ``rows_per_device`` rows per
     shard, then each shard merges its R key-sorted runs on the host.
-    Round r+1 is dispatched before round r is collected, so up to two
-    rounds are resident at once.
+
+    ``pipeline_rounds`` (default) double-buffers: round r+1 is staged and
+    dispatched before round r is collected, so up to TWO rounds of device
+    buffers are live at once. Pass False for the strict one-round
+    footprint: round r is collected before round r+1 is dispatched.
+
+    ``phase_times``, when a dict is passed, is filled with wall seconds
+    per phase: ``stage_s`` (host chunk prep, upload and the asynchronous
+    dispatch), ``collect_s`` (the device wait and the host-side run
+    split) and ``merge_s`` (the final per-shard ``merge_runs``), plus
+    ``rounds``. With pipelining on, stage and collect overlap the device,
+    so their sum can exceed the wall time.
 
     Returns ``(per_shard_sorted_rows: [D] list of u32[*, 1+P], rounds)``.
     """
@@ -155,8 +167,10 @@ def run_terasort_streamed(mesh: VirtualMesh, cfg: TeraSortConfig,
                          "out_factor >= 2 (pad headroom)")
 
     runs: list = [[] for _ in range(n)]
+    times = {"stage_s": 0.0, "collect_s": 0.0, "merge_s": 0.0}
 
     def dispatch(r: int):
+        t0 = time.perf_counter()
         chunk = rows[r * per_round:(r + 1) * per_round]
         pads_for = np.zeros(n, dtype=np.int64)
         tail_pad = per_round - len(chunk)
@@ -166,9 +180,12 @@ def run_terasort_streamed(mesh: VirtualMesh, cfg: TeraSortConfig,
             pad[:, 0] = range_max[dests]
             np.add.at(pads_for, dests, 1)
             chunk = np.concatenate([chunk, pad])
-        return pads_for, step(rows_from_numpy(chunk, mesh))
+        result = pads_for, step(rows_from_numpy(chunk, mesh))
+        times["stage_s"] += time.perf_counter() - t0
+        return result
 
     def collect(pads_for, results):
+        t0 = time.perf_counter()
         out, counts, overflowed = results
         if overflowed.cpu().numpy().any():
             raise OverflowError("streamed round receive overflow; raise "
@@ -179,20 +196,30 @@ def run_terasort_streamed(mesh: VirtualMesh, cfg: TeraSortConfig,
             total = int(counts[d].sum())
             # .copy(): a view would pin the whole padded round buffer
             runs[d].append(out[d][:total - int(pads_for[d])].copy())
+        times["collect_s"] += time.perf_counter() - t0
 
-    pending = None
-    for r in range(num_rounds):
-        nxt = dispatch(r)
-        if pending is not None:
-            collect(*pending)
-        pending = nxt
-    collect(*pending)
+    if pipeline_rounds:
+        pending = None
+        for r in range(num_rounds):
+            nxt = dispatch(r)
+            if pending is not None:
+                collect(*pending)
+            pending = nxt
+        collect(*pending)
+        del pending, nxt  # the last round's device buffers, before merge
+    else:
+        for r in range(num_rounds):
+            collect(*dispatch(r))
 
+    t0 = time.perf_counter()
     merged = []
     for d in range(n):
         # R key-sorted runs -> one sorted output; earlier rounds win ties
         _, out = merge_runs([(r[:, 0], r) for r in runs[d]])
         merged.append(out)
+    times["merge_s"] = time.perf_counter() - t0
+    if phase_times is not None:
+        phase_times.update(times, rounds=num_rounds)
     return merged, num_rounds
 
 

@@ -8,10 +8,13 @@ fixed-width binary already.
 
 Port of ``sparkrdma_tpu/shuffle/reader.py``: the same module but for
 ``TpuShuffleReader.read_to_device``, which stages on a PyTorch device
-through the module-level on-ramp ``read_to_device`` (fetched chunks ->
-one pinned host buffer -> one copy up), or, when the native fetch engine
-landed every chunk in pool-lease memory, copies the lease views up with
-no staging gather. ``torch`` is imported by those two only.
+through one lease of the executor's pool, charged to the fetcher's
+tenant as the JAX method's is (fetched chunks -> the lease -> one copy
+up), or, when the native fetch engine landed every chunk in pool-lease
+memory, copies the lease views up with no staging gather. The
+module-level on-ramp ``read_to_device`` stages chunks that no tenant
+owns through one pinned host buffer. ``torch`` is imported by these
+paths only.
 """
 
 from __future__ import annotations
@@ -164,34 +167,54 @@ class TpuShuffleReader:
         device tensors: each key as its (lo, hi) u32 words in int32 bits,
         the JAX method's ``u32[N, 2]``.
 
-        The fetched chunks go up through the module's ``read_to_device``
-        (one pinned gather, one copy; ``pool`` is not needed for it and
-        is taken for the JAX method's signature). Under ``native_fetch``,
-        when every chunk is pool-lease memory holding whole rows, the
-        lease views are copied up as they are, with no staging gather;
-        every lease is freed only after the copies completed.
+        The fetched chunks are gathered into one lease of ``pool``,
+        charged to the fetcher's tenant (a tenant over
+        ``tenant_pool_quota`` gets ``TenantQuotaError`` before any
+        staging), and go up from it in one copy; the lease is freed once
+        that copy has completed. Under ``native_fetch``, when every chunk
+        is pool-lease memory holding whole rows, the lease views are
+        copied up as they are, with no staging gather; every lease is
+        freed only after the copies completed.
         """
-        del pool
+        import torch
+
+        from sparkrdma_tpu_torch.parallel.mesh import resolve_device
+
         self.fetcher.start()
         chunks = []
         try:
+            device = resolve_device(device)
+            total = 0
             for result in self.fetcher:
                 if len(result.data):
                     # the result (and its pool lease, if any) is held
-                    # until the device copy below has completed
+                    # until the staging copy below, then freed
                     chunks.append(result)
+                    total += len(result.data)
                 else:
                     result.free()
             row_bytes = 8 + self.row_payload_bytes
-            if (chunks and self.fetcher.conf.native_fetch
+            if total == 0:
+                return read_to_device([], self.row_payload_bytes, device)
+            if (self.fetcher.conf.native_fetch
                     and all(r.lease is not None for r in chunks)
                     and all(len(r.data) % row_bytes == 0 for r in chunks)):
                 return _donated([r.data for r in chunks],
                                 self.row_payload_bytes, device)
-            return read_to_device([r.data for r in chunks],
-                                  self.row_payload_bytes, device)
+            with pool.get(total, tenant=self.fetcher.tenant) as buf:
+                staged = _gather([r.data for r in chunks], row_bytes,
+                                 buf.view[:total])
+                for r in chunks:
+                    r.free()
+                # a copy even on the CPU: the lease goes back to the pool
+                # once _split_rows has waited for the copy
+                flat = torch.from_numpy(staged).to(device, non_blocking=True,
+                                                   copy=True)
+                return _split_rows(flat, self.row_payload_bytes, device)
         finally:
-            # free() is idempotent; an exception mid-fetch frees the rest
+            # free() is idempotent: chunks already freed after the
+            # staging gather are no-ops; an exception mid-fetch frees
+            # the rest
             for r in chunks:
                 r.free()
             self.fetcher.close()
@@ -211,25 +234,22 @@ def _split_rows(flat, row_payload_bytes: int, device):
     return keys, payload
 
 
-def _gather(chunks: Iterable, row_bytes: int, pin: bool):
-    """Every chunk's bytes, in order, in one host buffer (page-locked when
-    ``pin``): the staging's one materialization. Raises ``ValueError`` for
-    a chunk that does not hold whole rows, as ``decode_rows`` does."""
-    import torch
-
+def _gather(chunks: Iterable, row_bytes: int, out):
+    """Every chunk's bytes, in order, into ``out``, a u8 host array or
+    CPU tensor of exactly their total length: the staging's one
+    materialization. Raises ``ValueError`` for a chunk that does not hold
+    whole rows, as ``decode_rows`` does. Returns ``out``."""
     parts = [np.frombuffer(c, dtype=np.uint8) for c in chunks]
     for part in parts:
         if len(part) % row_bytes:
             raise ValueError(f"byte length {len(part)} not a multiple of "
                              f"row size {row_bytes}")
-    host = torch.empty(sum(len(p) for p in parts), dtype=torch.uint8,
-                       pin_memory=pin)
-    buf = host.numpy()
+    buf = np.asarray(out)  # a tensor's memory, shared
     pos = 0
     for part in parts:
         buf[pos:pos + len(part)] = part
         pos += len(part)
-    return host
+    return out
 
 
 def read_to_device(chunks: Iterable, row_payload_bytes: int,
@@ -254,12 +274,15 @@ def read_to_device(chunks: Iterable, row_payload_bytes: int,
     from sparkrdma_tpu_torch.parallel.mesh import resolve_device
 
     device = resolve_device(device)
-    host = _gather(chunks, 8 + row_payload_bytes,
-                   pin=device.type == "cuda")
-    if host.numel() == 0:
+    parts = [np.frombuffer(c, dtype=np.uint8) for c in chunks]
+    total = sum(len(p) for p in parts)
+    if total == 0:
         return (torch.zeros((0, 2), dtype=torch.int32, device=device),
                 torch.zeros((0, row_payload_bytes), dtype=torch.uint8,
                             device=device))
+    host = _gather(parts, 8 + row_payload_bytes,
+                   torch.empty(total, dtype=torch.uint8,
+                               pin_memory=device.type == "cuda"))
     return _split_rows(host.to(device, non_blocking=True),
                        row_payload_bytes, device)
 

@@ -364,7 +364,7 @@ def committed_stage(tmp_path_factory):
         driver.stop()
 
 
-def test_read_to_device_on_card(cuda, committed_stage):
+def test_read_to_device_on_card(cuda, committed_stage, monkeypatch):
     """The on-ramp stages through a pinned buffer onto the card, byte-equal
     after download, and its result stands when the caller reuses or frees
     the chunks right after return."""
@@ -376,8 +376,16 @@ def test_read_to_device_on_card(cuda, committed_stage):
     chunks = [bytearray(executors[m % 2].resolver.local_blocks(
         1, m, 0, handle.num_partitions)) for m in range(handle.num_maps)]
     want_keys, want_payload = decode_rows(b"".join(chunks), width)
-    assert treader._gather(chunks, 8 + width, pin=True).is_pinned()
+    staging = []
+    gather = treader._gather
+
+    def spy(parts, row_bytes, out):
+        staging.append(out)
+        return gather(parts, row_bytes, out)
+
+    monkeypatch.setattr(treader, "_gather", spy)
     keys, payload = treader.read_to_device(chunks, width)
+    assert len(staging) == 1 and staging[0].is_pinned()
     for chunk in chunks:          # the caller reuses its buffers at once
         chunk[:] = bytes(len(chunk))
     del chunks
@@ -390,6 +398,43 @@ def test_read_to_device_on_card(cuda, committed_stage):
     empty_keys, empty_payload = treader.read_to_device([], width)
     assert empty_keys.is_cuda and empty_keys.shape == (0, 2)
     assert empty_payload.shape == (0, width)
+
+
+def test_reader_read_to_device_stages_through_the_pool_on_card(
+        cuda, committed_stage):
+    """``TpuShuffleReader.read_to_device`` with the staging gather (maps
+    0 and 2 local, map 1 fetched): the records of every map on the card,
+    staged through a lease of the pool given to it, which is back in the
+    pool, charged to no tenant, on return."""
+    from sparkrdma_tpu_torch.config import TpuShuffleConf
+    from sparkrdma_tpu_torch.runtime.pool import BufferPool
+    from sparkrdma_tpu_torch.shuffle.reader import TpuShuffleReader
+    from sparkrdma_tpu_torch.shuffle.writer import decode_rows
+
+    executors, handle = committed_stage
+    width, parts = handle.row_payload_bytes, handle.num_partitions
+    conf = TpuShuffleConf(connect_timeout_ms=5000, native_fetch=False)
+    reader = TpuShuffleReader(
+        executors[0].executor, executors[0].resolver, conf, 1,
+        handle.num_maps, 0, parts, width, pool=executors[0].pool)
+    pool = BufferPool(conf)
+    try:
+        keys, payload = reader.read_to_device(pool)
+        assert keys.is_cuda and payload.is_cuda
+        want = decode_rows(b"".join(
+            executors[m % 2].resolver.local_blocks(1, m, 0, parts)
+            for m in range(handle.num_maps)), width)
+        got = np.concatenate([keys.cpu().numpy().view(np.uint8),
+                              payload.cpu().numpy()], axis=1)
+        rows = np.concatenate([np.ascontiguousarray(want[0]).view(
+            np.uint8).reshape(-1, 8), want[1]], axis=1)
+        np.testing.assert_array_equal(got[np.lexsort(got.T[::-1])],
+                                      rows[np.lexsort(rows.T[::-1])])
+        assert pool.peak_leased_bytes >= got.nbytes
+        assert pool.tenant_leased_bytes(reader.fetcher.tenant) == 0
+        assert pool.idle_bytes == pool.total_bytes
+    finally:
+        pool.stop()
 
 
 @pytest.mark.parametrize("rows_per_round", [0, 1000])

@@ -5,7 +5,9 @@ the same data and reads back the same records. The port's
 ``TpuShuffleReader.read_to_device`` stages on the CPU the same keys and
 payload as the JAX method, both through the staging gather and through
 the lease-donation branch (``native_fetch`` on, every chunk landed in
-pool-lease memory by the native fetch engine), and frees every lease.
+pool-lease memory by the native fetch engine), and frees every lease;
+its staging gather is a pool lease charged to the fetcher's tenant, so
+a tenant over ``tenant_pool_quota`` is refused as in the JAX package.
 The native shim is the port's own, built from ``csrc/`` into ``build/``.
 """
 
@@ -17,17 +19,23 @@ import pytest
 import torch
 
 from sparkrdma_tpu.config import TpuShuffleConf as JConf
+from sparkrdma_tpu.runtime import pool as jpool
 from sparkrdma_tpu.shuffle import manager as jmanager
 from sparkrdma_tpu.shuffle import reader as jreader
+from sparkrdma_tpu.shuffle import tenancy as jtenancy
 from sparkrdma_tpu_torch.config import TpuShuffleConf as TConf
 from sparkrdma_tpu_torch.runtime import native as tnative
+from sparkrdma_tpu_torch.runtime import pool as tpool
 from sparkrdma_tpu_torch.runtime import shim_build
 from sparkrdma_tpu_torch.shuffle import manager as tmanager
 from sparkrdma_tpu_torch.shuffle import reader as treader
+from sparkrdma_tpu_torch.shuffle import tenancy as ttenancy
 
 PKGS = {"jax": (jmanager, jreader, JConf),
         "port": (tmanager, treader, TConf)}
 CONF_KW = dict(connect_timeout_ms=5000, pre_warm_connections=False)
+TENANT_ERRORS = {"jax": jtenancy.TenantQuotaError,
+                 "port": ttenancy.TenantQuotaError}
 MAPS, PARTS, WIDTH = 8, 8, 12
 
 
@@ -139,6 +147,49 @@ def test_reader_read_to_device_matches_jax(clusters, monkeypatch,
     np.testing.assert_array_equal(_rows(tk, tp), _rows(jk, jp))
     pool = clusters["port"][1][2].pool
     assert pool.idle_bytes == pool.total_bytes, "leaked pool lease"
+
+
+@pytest.mark.parametrize("quota", [4096, 1 << 20])
+def test_read_to_device_charges_the_tenant_pool_quota(clusters, quota):
+    """Both packages stage the gather (``native_fetch`` off) through a
+    lease of the pool given to ``read_to_device``, charged to the fetcher's tenant: under a
+    quota smaller than the partition both raise ``TenantQuotaError``
+    before any staging; within it both stage the same records through
+    the lease. Either way the tenant's gauge is back to zero after."""
+    staged = sum(len(_map_data(m)[0]) for m in range(MAPS)) * (8 + WIDTH)
+    assert 4096 < staged < (1 << 20)
+    got, pools = {}, {}
+    for pkg, (_, reader_mod, conf_cls) in PKGS.items():
+        _, execs, handle = clusters[pkg]
+        pool_mod = (tpool if pkg == "port" else jpool)
+        pools[pkg] = pool = pool_mod.BufferPool(
+            conf_cls(tenant_pool_quota=quota))
+        reader = reader_mod.TpuShuffleReader(
+            execs[2].executor, execs[2].resolver,
+            conf_cls(**dict(CONF_KW, native_fetch=False)),
+            handle.shuffle_id, handle.num_maps, 0, PARTS, WIDTH,
+            pool=execs[2].pool)
+        tenant = reader.fetcher.tenant
+        kw = {"device": "cpu"} if pkg == "port" else {}
+        try:
+            if quota < staged:
+                with pytest.raises(TENANT_ERRORS[pkg]):
+                    reader.read_to_device(pool, **kw)
+                assert pool.peak_leased_bytes == 0
+            else:
+                keys, payload = reader.read_to_device(pool, **kw)
+                got[pkg] = (np.asarray(keys).view(np.uint32)
+                            if pkg == "jax" else
+                            keys.numpy().view(np.uint32),
+                            np.asarray(payload))
+                assert pool.peak_leased_bytes >= staged
+            assert pool.tenant_leased_bytes(tenant) == 0
+            assert pool.idle_bytes == pool.total_bytes, "leaked pool lease"
+        finally:
+            pool.stop()
+    if got:
+        assert len(got["port"][0]) == staged // (8 + WIDTH)
+        np.testing.assert_array_equal(_rows(*got["port"]), _rows(*got["jax"]))
 
 
 def test_donated_rows_survive_the_leases(clusters):

@@ -36,6 +36,7 @@ LOCKSTEP = port_host_plane.LOCKSTEP
 PORTED = (
     "__init__.py",
     "__main__.py",
+    "bench.py",
     "engine.py",
     "models/__init__.py",
     "models/als.py",
