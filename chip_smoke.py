@@ -16,7 +16,10 @@ printing one JSON line; any failure raises and the exit code is not 0:
    (the load/store body); CUDA-event medians of the kernel, the plain
    version and one library call computing the same function, cold (a
    shape whose blocks fit in the L2 is also timed warm, and cold by
-   rotating through copies), and the host's time per launch;
+   rotating through copies), and the host's time per launch; then the
+   same at a fixed list of misaligned shapes that the paths below launch
+   (``MISALIGNED_SHAPES``, the load/store body), each with its ratio to
+   the library call, on a line of its own;
 4. main path: TeraSort of 1 GiB of 100-byte rows over an 8-shard virtual
    mesh with the ring transport (BASELINE.md config #1), counting kernel
    launches, then ``verify_terasort``; repeated warm steps timed on the
@@ -251,6 +254,11 @@ TILE_WORDS = ring_exchange.TMA_TILE_BYTES // 4
 EDGE_SHAPES = tuple((d, d, c, w) for d in (1, 2, 3, 8)
                     for c, w in ((100, 4), (TILE_WORDS // 2, 2),
                                  (TILE_WORDS // 4 + 1, 4)))
+# blocks that are no multiple of 16 bytes (the load/store body), at the
+# shapes the round drivers, the engine, device_bench, the streamed TeraSort,
+# the hierarchical mesh reduce and q95 launch the kernel at
+MISALIGNED_SHAPES = ((8, 8, 27962, 25), (8, 8, 83886, 25), (8, 8, 69905, 10),
+                     (4, 4, 334406, 25), (8, 8, 3277, 1))
 KERNELS = ("ring_exchange",)
 STEP_SAMPLES = 20             # untraced steps timed before the traced one
 WORKLOAD_SAMPLES = 5          # warm steps timed per workload phase
@@ -529,7 +537,30 @@ def phase_kernel(cfg: TeraSortConfig) -> dict:
           "body_by_shape": bodies, "unaligned_shape": [
               SHARDS, SHARDS, q - 1, 1 + cfg.payload_words],
           "unaligned_ms": unaligned_ms})
+    phase_kernel_misaligned(row)
     return row
+
+
+def phase_kernel_misaligned(row: dict) -> None:
+    """The kernel against its plain version, bit for bit, at every shape
+    of ``MISALIGNED_SHAPES`` (the load/store body), each timed like
+    ``phase_kernel`` with ``vs_library`` = library ms / kernel ms; the
+    entries join the kernel row's ``by_shape``."""
+    entries = []
+    for i, shape in enumerate(MISALIGNED_SHAPES):
+        blocks = _random_blocks(shape, 20 + i)
+        err, body = _check_kernel(blocks)
+        if body != "ldst":
+            raise AssertionError(f"{shape} took the {body} body")
+        times = _kernel_times(blocks, body)
+        del blocks
+        torch.cuda.empty_cache()
+        times["max_abs_err"] = err
+        times["vs_library"] = times["library_ms"] / times["ms"]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["by_shape"].append(times)
+        entries.append(times)
+    emit({"phase": "kernel_misaligned", "by_shape": entries})
 
 
 def phase_kernel_chunked(row: dict) -> None:

@@ -14,8 +14,9 @@ cold, by rotating through copies of the blocks that touch more than
 per launch (100 launches, no synchronisation, median of 5 rounds; and
 its parts), the library transpose's time, a plain copy of the same
 bytes and the byte bound (H100 SXM, 3.35 TB/s). With ``--sweep``, and a wrapper that has the TMA
-body, also each body and a grid of TMA tile sizes, stage counts and
-CTAs per SM. The card's ``nvidia-smi`` name and power limit come first.
+body, also each body and, where the wrapper takes the TMA body, a grid
+of TMA tile sizes, stage counts and CTAs per SM. The card's
+``nvidia-smi`` name and power limit come first.
 """
 
 from __future__ import annotations
@@ -38,9 +39,14 @@ from sparkrdma_tpu_torch.ops import ring_exchange  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 << 20
 COLD_BYTES = 100 << 20
-# the block shapes the main paths launch the kernel at (chip_smoke.py)
+# the block shapes the main paths launch the kernel at (chip_smoke.py):
+# 16-byte-aligned blocks (the TMA body), then blocks that are no multiple
+# of 16 bytes (the load/store body, chip_smoke.MISALIGNED_SHAPES and q64's)
 SHAPES = ((8, 8, 335544, 25), (8, 8, 1 << 21, 3), (8, 8, 1 << 22, 2),
-          (8, 8, 1 << 21, 2), (8, 8, 1 << 18, 2), (8, 8, 58982, 2))
+          (8, 8, 1 << 21, 2), (8, 8, 1 << 18, 2), (8, 8, 58982, 2),
+          (8, 8, 27962, 25), (8, 8, 83886, 25), (8, 8, 69905, 10),
+          (4, 4, 334406, 25), (8, 8, 3277, 1), (8, 8, 819, 3),
+          (8, 8, 4095, 3), (8, 8, 4095, 5))
 SWEEP = tuple((tile << 10, stages, ctas)
               for tile, stages, ctas in itertools.product(
                   (8, 16, 32, 64), (2, 3, 4, 6), (1, 2, 3, 4))
@@ -194,8 +200,17 @@ def main() -> None:
                 # practical rate for a copy of this size
                 "copy": timed(torch.clone, blocks)}
         line["share"] = bound_ms / line["kernel"]["ms"]
+        if has_bodies:
+            out = torch.empty_like(blocks)
+            line["body"] = ring_exchange.body_for(
+                *ring_exchange._pointer_table(blocks, out),
+                shape[2] * shape[3] * 4)
+            del out
         if args.sweep and has_bodies:
+            if not torch.equal(body_call("ldst")(blocks), want):
+                raise AssertionError(f"ldst body wrong at {shape}")
             line["ldst"] = timed(body_call("ldst"), blocks)
+        if args.sweep and has_bodies and line["body"] == "tma":
             sweep = []
             for tile, stages, ctas in SWEEP:
                 call = body_call("tma", tile_bytes=tile, stages=stages,

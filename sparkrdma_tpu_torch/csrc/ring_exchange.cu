@@ -26,10 +26,22 @@
 //   behind each store, so each SM keeps tens of kilobytes moving without
 //   spending registers or per-thread instructions on the copy, and no
 //   block of a few kilobytes is scheduled on its own.
-// - Load/store body (anything else): 256 threads a block, grid (chunk,
-//   pair), 16-byte streaming loads and stores four in flight per thread
-//   where the pair's block is aligned, scalar words otherwise and at a
-//   block's tail.
+// - Load/store body (anything else: bases and block size multiples of 4
+//   only). Each pair is one contiguous copy of C*W*4 bytes between two
+//   4-byte-aligned addresses, cut so that every 16-byte word it loads or
+//   stores lies wholly inside the pair's bytes: a scalar head until the
+//   destination is 16-byte aligned (one vector longer where the first
+//   aligned source vector would start before the block), an interior of
+//   16-byte streaming loads and stores, and a scalar tail; head and tail
+//   are at most 15 words together. Where the source is r = 1..3 words
+//   past a 16-byte boundary at the interior's start, each lane loads
+//   aligned source vectors and builds each output from words r..3 of its
+//   own and words 0..r-1 of its neighbour's, handed over by a warp
+//   shuffle, so every source vector is read from memory once whatever the
+//   alignment. The grid is sized from the work: (tile groups, pairs), one
+//   warp per tile of 128 vectors (2 KB, four loads in flight a lane), so
+//   a large block is hundreds of CTAs a pair and a 13 KB block still
+//   spreads over two CTAs of four warps.
 //
 // The D source and D destination bases travel by value in the kernel's
 // parameter block (Bases, 2 KB), so a launch needs no device-side
@@ -62,14 +74,111 @@ struct Bases {
 
 // ---- load/store body -------------------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
-constexpr int kTargetBlocks = 4096;  // ~3-4 waves of 8 blocks per SM
+constexpr int kLdstThreads = 128;                    // 4 warps a CTA
+constexpr int kLdstWarps = kLdstThreads / 32;
+constexpr int kLdstUnroll = 4;                       // vectors in flight a lane
+constexpr int kTileVecs = 32 * kLdstUnroll;          // a warp tile, 2 KB
 
-__global__ void __launch_bounds__(kThreads)
+// Where the 16-byte interior of one pair's copy of n words lies: words
+// [0, head) and [head + 4 * nvec, n) are copied one by one; destination
+// vector k < nvec of the interior is words head + 4k .. head + 4k + 3,
+// read from the aligned source vectors at word head - r + 4k (and the
+// next one when r > 0), all inside the block.
+struct Interior {
+  long long head;
+  long long nvec;
+  int r;
+};
+
+__device__ __forceinline__ Interior interior_of(const int32_t* src,
+                                                const int32_t* dst,
+                                                long long n) {
+  Interior in;
+  in.head = static_cast<long long>(
+      ((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2);
+  in.r = 0;
+  in.nvec = 0;
+  if (in.head >= n) {
+    in.head = n;
+    return in;
+  }
+  in.r = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(src + in.head) & 15) >> 2);
+  // the first aligned source vector starts r words before the interior:
+  // inside the block only if the head is at least r words long
+  if (in.r > in.head) in.head += 4;
+  // the last output vector reads up to 8 - r words past its start
+  const long long room = n - in.head - (in.r ? 4 - in.r : 0);
+  if (in.head > n) {
+    in.head = n;
+  } else if (room >= 4) {
+    in.nvec = room / 4;
+  }
+  return in;
+}
+
+// One warp tile: the first min(left, kTileVecs) vectors of s4 -> d4 (the
+// tile's start in a pair's interior; left > 0 vectors remain from there)
+// of a pair whose source is R words past the aligned vectors s4. Lane l
+// takes vectors 32u + l, u < kLdstUnroll. R = 0: a straight copy. R > 0:
+// output k is words R..3 of s4[k] and 0..R-1 of s4[k + 1]; lane l gets
+// s4[k + 1] from lane l + 1, and lane 31 from lane 0, which hands over
+// the first vector of the next group (or of the next tile) instead of
+// its own. s4[left] is the last vector the pair reads.
+template <int R>
+__device__ __forceinline__ void copy_tile(const int4* __restrict__ s4,
+                                          int4* __restrict__ d4,
+                                          long long left, int lane) {
+  const int outs = left < kTileVecs ? static_cast<int>(left) : kTileVecs;
+  // vectors s4[i], i < loads, lie inside the pair's bytes
+  const int loads = R == 0 ? outs
+                    : left < kTileVecs ? static_cast<int>(left) + 1
+                                       : kTileVecs + 1;
+  int4 cur[kLdstUnroll];
+#pragma unroll
+  for (int u = 0; u < kLdstUnroll; ++u) {
+    const int i = u * 32 + lane;
+    cur[u] = i < loads ? __ldcs(s4 + i) : make_int4(0, 0, 0, 0);
+  }
+  if (R == 0) {
+#pragma unroll
+    for (int u = 0; u < kLdstUnroll; ++u) {
+      const int i = u * 32 + lane;
+      if (i < outs) __stcs(d4 + i, cur[u]);
+    }
+    return;
+  }
+  int4 ext = make_int4(0, 0, 0, 0);
+  if (lane == 0 && kTileVecs < loads) ext = __ldcs(s4 + kTileVecs);
+  const int from = (lane + 1) & 31;
+#pragma unroll
+  for (int u = 0; u < kLdstUnroll; ++u) {
+    const int4 give =
+        lane == 0 ? (u + 1 < kLdstUnroll ? cur[u + 1] : ext) : cur[u];
+    const int4 c = cur[u];
+    int4 o;
+    if (R == 1) {
+      o = make_int4(c.y, c.z, c.w, __shfl_sync(0xffffffffu, give.x, from));
+    } else if (R == 2) {
+      o = make_int4(c.z, c.w, __shfl_sync(0xffffffffu, give.x, from),
+                    __shfl_sync(0xffffffffu, give.y, from));
+    } else {
+      o = make_int4(c.w, __shfl_sync(0xffffffffu, give.x, from),
+                    __shfl_sync(0xffffffffu, give.y, from),
+                    __shfl_sync(0xffffffffu, give.z, from));
+    }
+    const int i = u * 32 + lane;
+    if (i < outs) __stcs(d4 + i, o);
+  }
+}
+
+__global__ void __launch_bounds__(kLdstThreads)
 ring_ldst_kernel(const __grid_constant__ Bases bases, int num_src,
                  int src_begin, long long block_words) {
-  const int pair = blockIdx.y;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int pair = static_cast<int>(blockIdx.y);
+  const long long tile =
+      static_cast<long long>(blockIdx.x) * kLdstWarps + threadIdx.x / 32;
   const int dst_shard = pair / num_src;
   const int src_local = pair % num_src;
   const int32_t* __restrict__ src =
@@ -78,30 +187,31 @@ ring_ldst_kernel(const __grid_constant__ Bases bases, int num_src,
   int32_t* __restrict__ dst =
       reinterpret_cast<int32_t*>(bases.dst[dst_shard]) +
       static_cast<long long>(src_begin + src_local) * block_words;
-
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long vec_words = 0;
-  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
-       15) == 0) {
-    const long long nvec = block_words / 4;
-    const int4* __restrict__ s4 = reinterpret_cast<const int4*>(src);
-    int4* __restrict__ d4 = reinterpret_cast<int4*>(dst);
-    long long v = tid;
-    for (; v + (kUnroll - 1) * stride < nvec; v += kUnroll * stride) {
-      int4 r[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) r[u] = __ldcs(s4 + v + u * stride);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) __stcs(d4 + v + u * stride, r[u]);
+  // every value below but the lane's own indices is the same in the warp,
+  // so the warp stays converged through the shuffles
+  const Interior in = interior_of(src, dst, block_words);
+  // tile 0 also copies the head's and the tail's words, at most 15, one
+  // a lane: loaded here and stored last, so its load is in flight
+  // together with the tile's vector loads
+  long long w = block_words;
+  if (tile == 0) {
+    w = lane < in.head ? lane : in.head + 4 * in.nvec + (lane - in.head);
+  }
+  const int32_t word = w < block_words ? src[w] : 0;
+  const long long first = tile * kTileVecs;
+  if (first < in.nvec) {
+    const int4* s4 =
+        reinterpret_cast<const int4*>(src + in.head - in.r) + first;
+    int4* d4 = reinterpret_cast<int4*>(dst + in.head) + first;
+    const long long left = in.nvec - first;
+    switch (in.r) {
+      case 0: copy_tile<0>(s4, d4, left, lane); break;
+      case 1: copy_tile<1>(s4, d4, left, lane); break;
+      case 2: copy_tile<2>(s4, d4, left, lane); break;
+      default: copy_tile<3>(s4, d4, left, lane); break;
     }
-    for (; v < nvec; v += stride) __stcs(d4 + v, __ldcs(s4 + v));
-    vec_words = nvec * 4;
   }
-  for (long long w = vec_words + tid; w < block_words; w += stride) {
-    dst[w] = src[w];
-  }
+  if (w < block_words) dst[w] = word;
 }
 
 // ---- TMA body --------------------------------------------------------
@@ -306,15 +416,16 @@ int launch_tma(const Bases& bases, int num_dst, int src_begin, int num_src,
 int launch_ldst(const Bases& bases, int num_dst, int src_begin, int num_src,
                 long long block_bytes, cudaStream_t stream) {
   const long long block_words = block_bytes / 4;
-  const long long pairs = static_cast<long long>(num_dst) * num_src;
-  const long long per_block = static_cast<long long>(kThreads) * kUnroll * 4;
-  long long chunks = (block_words + per_block - 1) / per_block;
-  const long long cap = kTargetBlocks / pairs > 0 ? kTargetBlocks / pairs : 1;
-  if (chunks > cap) chunks = cap;
-  if (chunks < 1) chunks = 1;
-  dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(pairs));
-  ring_ldst_kernel<<<grid, kThreads, 0, stream>>>(bases, num_src, src_begin,
-                                                  block_words);
+  // a pair's interior has at most block_words / 4 vectors; its tile 0
+  // also copies the scalar head and tail, so every pair has one
+  const long long tiles = (block_words / 4 + kTileVecs - 1) / kTileVecs;
+  const long long groups = tiles > 0 ? (tiles + kLdstWarps - 1) / kLdstWarps
+                                     : 1;
+  if (groups > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned>(groups),
+            static_cast<unsigned>(num_dst * num_src));
+  ring_ldst_kernel<<<grid, kLdstThreads, 0, stream>>>(bases, num_src,
+                                                      src_begin, block_words);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,7 +52,7 @@ def test_kernel_matches_plain(cuda, shape):
 
 def test_kernel_unaligned_base_pointer(cuda):
     """A contiguous view that starts 4 bytes into its storage: no block is
-    16-byte aligned, so every word takes the scalar path."""
+    16-byte aligned, so the load/store body moves every word."""
     shape = (4, 4, 6, 8)
     flat = _blocks((1 + int(np.prod(shape)),), 3, cuda)
     x = flat[1:].view(shape)
@@ -165,6 +165,51 @@ def test_unaligned_views_take_the_load_store_body(cuda, offset, c, w):
     got, bodies = _bodies_launched(lambda: tre.ring_all_to_all(x))
     assert bodies == {"ldst": 1}
     assert torch.equal(got, tre.ring_all_to_all_plain(x))
+
+
+GUARD = 64              # guard words on each side of a guarded output
+SENTINEL = 0x5A5A5A5A
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 8])
+@pytest.mark.parametrize("block_mod", [0, 4, 8, 12])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_load_store_body_alignment_sweep(cuda, offset, block_mod, d):
+    """The load/store body at every alignment: a source view ``offset``
+    words into an aligned buffer, the output at another offset, blocks of
+    ``C*W*4`` bytes with ``C*W*4 mod 16 = block_mod``: a few words, below
+    one CTA's share, across several CTAs and 2 MB; the full launch and
+    two range launches. Each equals the plain version, and the guard
+    words around the output are untouched."""
+    dst_offset = (offset + 1 + block_mod // 4) % 4
+    for i, base in enumerate((4, 100, 10240, 1 << 19)):
+        n = base + block_mod // 4
+        gen = torch.Generator(device=cuda).manual_seed(offset * 97 + d + i)
+        flat = torch.randint(-2**31, 2**31 - 1, (8 + d * d * n,),
+                             dtype=torch.int32, device=cuda, generator=gen)
+        pad = (-flat.data_ptr() // 4) % 4        # align the buffer's start
+        x = flat[pad + offset:pad + offset + d * d * n].view(d, d, n, 1)
+        assert x.data_ptr() % 16 == 4 * offset
+        want = tre.ring_all_to_all_plain(x)
+        for ranged in (False, True):
+            buf = torch.full((2 * GUARD + 4 + d * d * n,), SENTINEL,
+                             dtype=torch.int32, device=cuda)
+            lo = GUARD + (-(buf.data_ptr() // 4 + GUARD)) % 4 + dst_offset
+            out = buf[lo:lo + d * d * n].view(d, d, n, 1)
+            assert out.data_ptr() % 16 == 4 * dst_offset
+            src, dst = tre._pointer_table(x, out)
+            if ranged:      # sources [0, d // 2), then [d // 2, d)
+                for s0, s1 in ((0, d // 2), (d // 2, d)):
+                    if s1 > s0:
+                        tre._launch(x, out, "ldst", src[s0:s1], dst,
+                                    src_begin=s0)
+            else:
+                tre._launch(x, out, "ldst", src, dst)
+            torch.cuda.synchronize()
+            case = (n, ranged)
+            assert torch.equal(out, want), case
+            assert (buf[:lo] == SENTINEL).all(), case
+            assert (buf[lo + d * d * n:] == SENTINEL).all(), case
 
 
 def test_tma_body_refuses_a_misaligned_base(cuda):

@@ -35,7 +35,11 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().view(np.uint32)
 
 
-@pytest.mark.parametrize("c,w", [(16, 8), (3, 3), (1, 25)])
+@pytest.mark.parametrize("c,w", [
+    (16, 8), (3, 3), (1, 25),
+    # the misaligned widths the card's paths meet (odd C, blocks that are
+    # no multiple of 16 bytes: the kernel's load/store body)
+    (7, 1), (5, 3), (3, 5), (3, 10), (5, 25)])
 def test_plain_matches_pallas_interpret_and_swapaxes(mesh, c, w):
     x = np.random.default_rng(c * 31 + w).integers(
         0, 2**32, size=(D, D, c, w), dtype=np.uint32)
