@@ -10,16 +10,18 @@ printing one JSON line; any failure raises and the exit code is not 0:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of the main path, one ``nvcc`` per source;
 3. kernel: ``ring_all_to_all`` against its plain PyTorch version, bit
-   for bit, at the TeraSort path's shape, at the TMA body's tile edges
-   (a block smaller than a tile, one tile, one tile + 16 bytes; D = 1,
-   2, 3, 8) and at an odd shape whose blocks are not 16-byte aligned
-   (the load/store body); CUDA-event medians of the kernel, the plain
-   version and one library call computing the same function, cold (a
-   shape whose blocks fit in the L2 is also timed warm, and cold by
-   rotating through copies), and the host's time per launch; then the
-   same at a fixed list of misaligned shapes that the paths below launch
-   (``MISALIGNED_SHAPES``, the load/store body), each with its ratio to
-   the library call, on a line of its own;
+   for bit, at the TeraSort path's shape, at the kernel's tile edges (a
+   block shorter than a scalar head plus tail, one warp tile, one tile +
+   1 word, several tile groups; D = 1, 2, 3, 8) and at an odd shape
+   whose blocks are not 16-byte aligned; CUDA-event medians of the
+   kernel, the plain version and one library call computing the same
+   function, cold (a shape whose blocks fit in the L2 is also timed
+   warm, and cold by rotating through copies), and the host's time per
+   launch; then the same at a fixed list of misaligned shapes that the
+   paths below launch (``MISALIGNED_SHAPES``) and at the tiny aligned
+   ones (``SMALL_SHAPES``), each with its ratio to the library call
+   (``vs_library``), on a line each (``kernel_misaligned``,
+   ``kernel_small``);
 4. main path: TeraSort of 1 GiB of 100-byte rows over an 8-shard virtual
    mesh with the ring transport (BASELINE.md config #1), counting kernel
    launches, then ``verify_terasort``; repeated warm steps timed on the
@@ -248,17 +250,28 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 L2_BYTES = 50 << 20          # H100 L2: blocks this small are timed warm too
 COLD_BYTES = 100 << 20       # bytes one rotation touches to evict the L2
 HOST_LAUNCHES = 100          # launches timed on the host clock, no sync
-TILE_WORDS = ring_exchange.TMA_TILE_BYTES // 4
-# the TMA body's edges: a block smaller than one tile, one tile, one
-# tile + 16 bytes, at D = 1, 2, 3, 8
+# the kernel's warp tile: kTileVecs = 128 vectors of 4 words; a CTA of
+# four warps takes four tiles
+TILE_WORDS = 512
+# the kernel's edges: a block shorter than a scalar head plus tail (under
+# 16 words), one tile, one tile + 1 word, three tile groups and a tail,
+# at D = 1, 2, 3, 8
 EDGE_SHAPES = tuple((d, d, c, w) for d in (1, 2, 3, 8)
-                    for c, w in ((100, 4), (TILE_WORDS // 2, 2),
-                                 (TILE_WORDS // 4 + 1, 4)))
-# blocks that are no multiple of 16 bytes (the load/store body), at the
-# shapes the round drivers, the engine, device_bench, the streamed TeraSort,
-# the hierarchical mesh reduce and q95 launch the kernel at
+                    for c, w in ((3, 5), (TILE_WORDS // 4, 4),
+                                 (TILE_WORDS + 1, 1),
+                                 (3 * TILE_WORDS + 7, 4)))
+# blocks that are no multiple of 16 bytes, at the shapes the round
+# drivers, the engine, device_bench, the streamed TeraSort, the
+# hierarchical mesh reduce and q95 launch the kernel at
 MISALIGNED_SHAPES = ((8, 8, 27962, 25), (8, 8, 83886, 25), (8, 8, 69905, 10),
                      (4, 4, 334406, 25), (8, 8, 3277, 1))
+# 16-byte-aligned blocks of 64 KB and less, at the shapes q95, q64, the
+# engine's q95, the CLI's engine-mesh demo and device_bench's defaults
+# launch the kernel at
+SMALL_SHAPES = ((8, 8, 2, 2), (8, 8, 46, 2), (8, 8, 100, 2), (8, 8, 2, 4),
+                (8, 8, 46, 4), (8, 8, 100, 4), (8, 8, 256, 4),
+                (8, 8, 388, 4), (8, 8, 512, 4), (8, 8, 256, 3),
+                (8, 8, 4095, 4))
 KERNELS = ("ring_exchange",)
 STEP_SAMPLES = 20             # untraced steps timed before the traced one
 WORKLOAD_SAMPLES = 5          # warm steps timed per workload phase
@@ -423,10 +436,10 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def _check_kernel(blocks: torch.Tensor):
+def _check_kernel(blocks: torch.Tensor) -> int:
     """The kernel against its plain version on ``blocks``: raises unless
-    bit-equal; returns the max abs error (0) and the body it took."""
-    before = dict(ring_exchange.BODIES)
+    bit-equal and launched once; returns the max abs error (0)."""
+    before = ring_exchange.LAUNCHES
     got = ring_exchange.ring_all_to_all(blocks)
     plain = ring_exchange.ring_all_to_all_plain(blocks)
     torch.cuda.synchronize()
@@ -434,9 +447,9 @@ def _check_kernel(blocks: torch.Tensor):
     if not torch.equal(got, plain):
         raise AssertionError(
             f"ring_all_to_all != plain at {tuple(blocks.shape)}")
-    body, = [k for k, v in ring_exchange.BODIES.items()
-             if v != before.get(k, 0)]
-    return err, body
+    if ring_exchange.LAUNCHES != before + 1:
+        raise AssertionError("ring_all_to_all did not launch the kernel")
+    return err
 
 
 def _rotating(fn, blocks: torch.Tensor):
@@ -455,22 +468,22 @@ def _rotating(fn, blocks: torch.Tensor):
     return call
 
 
-def _host_us_per_launch(blocks: torch.Tensor, rounds: int = 5) -> float:
-    """Host-clock time of ``HOST_LAUNCHES`` back-to-back wrapper calls with
-    no synchronisation, per call, in microseconds: what one launch costs
-    the host. Median of ``rounds`` such rounds."""
+def _host_us_per_launch(launch, rounds: int = 5) -> float:
+    """Host-clock time of ``HOST_LAUNCHES`` back-to-back calls of
+    ``launch()`` with no synchronisation, per call, in microseconds: what
+    one launch costs the host. Median of ``rounds`` such rounds."""
     per_call = []
     for _ in range(rounds):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(HOST_LAUNCHES):
-            ring_exchange.ring_all_to_all(blocks)
+            launch()
         per_call.append((time.perf_counter() - t0) / HOST_LAUNCHES * 1e6)
     torch.cuda.synchronize()
     return statistics.median(per_call)
 
 
-def _kernel_times(blocks: torch.Tensor, body: str) -> dict:
+def _kernel_times(blocks: torch.Tensor) -> dict:
     """CUDA-event times of the kernel, its plain version and the library
     transpose on ``blocks``, the host's time per launch, and the byte
     bound (each word read once and written once at the card's memory
@@ -482,7 +495,7 @@ def _kernel_times(blocks: torch.Tensor, body: str) -> dict:
     def library(b):
         return b.transpose(0, 1).contiguous()
 
-    times = {"shape": list(blocks.shape), "body": body}
+    times = {"shape": list(blocks.shape)}
     if blocks.nbytes <= L2_BYTES:
         times["warm_ms"] = cuda_ms(lambda: kernel(blocks))
         times["library_warm_ms"] = cuda_ms(lambda: library(blocks))
@@ -496,7 +509,8 @@ def _kernel_times(blocks: torch.Tensor, body: str) -> dict:
     times.update({"bytes_moved": moved, "ms": ms, "plain_ms": plain_ms,
                   "library_ms": library_ms, "bound_ms": bound_ms,
                   "roofline_share": bound_ms / ms,
-                  "host_us_per_launch": _host_us_per_launch(blocks)})
+                  "host_us_per_launch": _host_us_per_launch(
+                      lambda: kernel(blocks))})
     return times
 
 
@@ -505,19 +519,18 @@ def phase_kernel(cfg: TeraSortConfig) -> dict:
     block shape (q = out_cap // D rows of 1+P words) and an odd one."""
     q = cfg.rows_per_device * cfg.out_factor // SHARDS
     main_shape = (SHARDS, SHARDS, q, 1 + cfg.payload_words)
-    errs, bodies = {}, {}
+    errs = {}
     for i, shape in enumerate((main_shape, (SHARDS, SHARDS, 3, 3),
                                (3, 3, 5, 7)) + EDGE_SHAPES):
-        errs[str(shape)], bodies[str(shape)] = _check_kernel(
-            _random_blocks(shape, i))
+        errs[str(shape)] = _check_kernel(_random_blocks(shape, i))
     blocks = _random_blocks(main_shape, 0)
-    times = _kernel_times(blocks, bodies[str(main_shape)])
+    times = _kernel_times(blocks)
     # one row fewer per slot: C*W is odd, no block is 16-byte aligned and
-    # the kernel takes its load/store body, scalar words, at full size
+    # the pairs shift by 0-3 words, at full size
     odd = blocks[:, :, 1:].contiguous()
     del blocks
     odd_shape = str(tuple(odd.shape))
-    errs[odd_shape], bodies[odd_shape] = _check_kernel(odd)
+    errs[odd_shape] = _check_kernel(odd)
     unaligned_ms = cuda_ms(lambda: ring_exchange.ring_all_to_all(odd))
     del odd
     torch.cuda.empty_cache()
@@ -528,31 +541,25 @@ def phase_kernel(cfg: TeraSortConfig) -> dict:
            "launches": 0, "max_abs_err": max(errs.values()),
            "ms": times["ms"], "plain_ms": times["plain_ms"],
            "bound_ms": times["bound_ms"], "bound_by": "bytes",
-           "library_ms": times["library_ms"],
-           "tma_tile_bytes": ring_exchange.TMA_TILE_BYTES,
-           "tma_stages": ring_exchange.TMA_STAGES,
-           "tma_ctas_per_sm": ring_exchange.TMA_CTAS_PER_SM,
-           "by_shape": [times]}
+           "library_ms": times["library_ms"], "by_shape": [times]}
     emit({"phase": "kernel", **times, "max_abs_err_by_shape": errs,
-          "body_by_shape": bodies, "unaligned_shape": [
-              SHARDS, SHARDS, q - 1, 1 + cfg.payload_words],
+          "unaligned_shape": [SHARDS, SHARDS, q - 1, 1 + cfg.payload_words],
           "unaligned_ms": unaligned_ms})
-    phase_kernel_misaligned(row)
+    phase_kernel_shapes(row, "kernel_misaligned", MISALIGNED_SHAPES, 20)
+    phase_kernel_shapes(row, "kernel_small", SMALL_SHAPES, 40)
     return row
 
 
-def phase_kernel_misaligned(row: dict) -> None:
+def phase_kernel_shapes(row: dict, phase: str, shapes, seed: int) -> None:
     """The kernel against its plain version, bit for bit, at every shape
-    of ``MISALIGNED_SHAPES`` (the load/store body), each timed like
-    ``phase_kernel`` with ``vs_library`` = library ms / kernel ms; the
-    entries join the kernel row's ``by_shape``."""
+    of ``shapes``, each timed like ``phase_kernel`` with ``vs_library`` =
+    library ms / kernel ms; the entries join the kernel row's
+    ``by_shape``."""
     entries = []
-    for i, shape in enumerate(MISALIGNED_SHAPES):
-        blocks = _random_blocks(shape, 20 + i)
-        err, body = _check_kernel(blocks)
-        if body != "ldst":
-            raise AssertionError(f"{shape} took the {body} body")
-        times = _kernel_times(blocks, body)
+    for i, shape in enumerate(shapes):
+        blocks = _random_blocks(shape, seed + i)
+        err = _check_kernel(blocks)
+        times = _kernel_times(blocks)
         del blocks
         torch.cuda.empty_cache()
         times["max_abs_err"] = err
@@ -560,7 +567,7 @@ def phase_kernel_misaligned(row: dict) -> None:
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["by_shape"].append(times)
         entries.append(times)
-    emit({"phase": "kernel_misaligned", "by_shape": entries})
+    emit({"phase": phase, "by_shape": entries})
 
 
 def phase_kernel_chunked(row: dict) -> None:
@@ -569,8 +576,8 @@ def phase_kernel_chunked(row: dict) -> None:
     numbers join the kernel row's ``by_shape``."""
     shape = (SHARDS, SHARDS, bucket_quota(ALS_QUOTA), 3)
     blocks = _random_blocks(shape, 3)
-    err, body = _check_kernel(blocks)
-    times = _kernel_times(blocks, body)
+    err = _check_kernel(blocks)
+    times = _kernel_times(blocks)
     del blocks
     torch.cuda.empty_cache()
     times["max_abs_err"] = err
@@ -847,24 +854,18 @@ def phase_bench(row: dict) -> dict:
     return launches
 
 
-PATH_BODIES = {}   # path -> the kernel's launches on it per body
-
-
 def _launches(path: str, fn):
     """``fn()`` with the kernel's launch counts set to 0 just before it
     and read just after; raises if the path never launched the kernel.
-    Records the launches per body in ``PATH_BODIES``. Returns ``(fn(),
-    launches, launches per block shape)``."""
+    Returns ``(fn(), launches, launches per block shape)``."""
     ring_exchange.LAUNCHES = 0
     ring_exchange.SHAPES.clear()
-    ring_exchange.BODIES.clear()
     out = fn()
     torch.cuda.synchronize()
     launches = ring_exchange.LAUNCHES
     if launches == 0:
         raise AssertionError(f"the {path} path never launched "
                              "ring_all_to_all")
-    PATH_BODIES[path] = dict(ring_exchange.BODIES)
     return out, launches, dict(ring_exchange.SHAPES)
 
 
@@ -879,8 +880,8 @@ def _check_path_shapes(row: dict, path: str, shapes: dict) -> list:
         entry = by_shape.get(shape)
         if entry is None:
             blocks = _random_blocks(shape, 10 + len(by_shape))
-            err, body = _check_kernel(blocks)
-            entry = _kernel_times(blocks, body)
+            err = _check_kernel(blocks)
+            entry = _kernel_times(blocks)
             del blocks
             torch.cuda.empty_cache()
             entry["max_abs_err"] = err
@@ -2002,7 +2003,7 @@ def _peer_shape_check(mesh, shape, seed: int) -> dict:
     this process's launch into the arenas, of the same launch into a
     local buffer (``local_dst_ms``: what the IPC mapping costs), of the
     plain PyTorch block moves of the same bytes, of one library copy
-    doing them, and the byte bound. The processes time in turn, each
+    doing them, the host's time per range launch, and the byte bound. The processes time in turn, each
     while the others wait at a barrier, so no other process's kernel
     runs meanwhile."""
     dl, g, c, w = shape
@@ -2020,7 +2021,6 @@ def _peer_shape_check(mesh, shape, seed: int) -> dict:
         raise AssertionError(f"ring_all_to_all_peers != plain at {shape}")
     del got, want, glob
     src, dst = ring_exchange._peer_pointer_table(mine, mesh.arena.bases)
-    body = ring_exchange.body_for(src, dst, c * w * 4)
     full = torch.empty((g, g, c, w), dtype=torch.int32, device="cuda")
     local_dst = [full[j].data_ptr() for j in range(g)]
 
@@ -2034,16 +2034,21 @@ def _peer_shape_check(mesh, shape, seed: int) -> dict:
         if turn == mesh.rank:
             times = {
                 "ms": cuda_ms(lambda: ring_exchange._launch(
-                    mine, None, body, src, dst, src_begin=lo)),
+                    mine, src, dst, src_begin=lo)),
                 "local_dst_ms": cuda_ms(lambda: ring_exchange._launch(
-                    mine, None, body, src, local_dst, src_begin=lo)),
+                    mine, src, local_dst, src_begin=lo)),
+                # the pointer table and the launch, without the fences
+                "host_us_per_launch": _host_us_per_launch(
+                    lambda: ring_exchange._launch(
+                        mine, *ring_exchange._peer_pointer_table(
+                            mine, mesh.arena.bases), src_begin=lo)),
                 "plain_ms": cuda_ms(plain, repeats=3, per_repeat=2),
                 "library_ms": cuda_ms(lambda: full[:, lo:lo + dl].copy_(
                     mine.transpose(0, 1)))}
             torch.cuda.synchronize()
         dist.barrier(group=mesh.group)
     moved = 2 * mine.numel() * 4
-    return {"shape": list(shape), "body": body, "max_abs_err": err,
+    return {"shape": list(shape), "max_abs_err": err,
             "bytes_moved": moved, **times,
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
@@ -2080,8 +2085,7 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
     report["terasort"] = {"wall_s": wall, "rows": rows, "digests": digests,
                           "ring_launches": launches,
                           "ring_shapes": [[list(k), v]
-                                          for k, v in shapes.items()],
-                          "bodies": PATH_BODIES["multihost/terasort"]}
+                                          for k, v in shapes.items()]}
     shapes_seen.update(shapes)
 
     # the mesh-service stage as a two-process job
@@ -2137,7 +2141,6 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
             runs[name] = {
                 "wall_s": wall, "ring_launches": launches,
                 "ring_shapes": [[list(k), v] for k, v in shapes.items()],
-                "bodies": PATH_BODIES[f"multihost/mesh_{name}"],
                 "rows": int(sum(len(k) for k, _, _ in result)),
                 "cross_slice_bytes": after["bytes"] - before["bytes"],
                 "partition_digests": _partition_digests(result)}
@@ -2265,13 +2268,10 @@ def phase_multihost(row: dict, cfg: TeraSortConfig,
         if launches[path] == 0:
             raise AssertionError(f"the {path} path never launched the "
                                  "kernel")
-        bodies = collections.Counter()
         for r in reports:
-            bodies.update(pick(r)["bodies"])
             for shape, n in pick(r)["ring_shapes"]:
                 entry = by_shape[tuple(shape)]
                 entry[path] = entry.get(path, 0) + n
-        PATH_BODIES[path] = dict(bodies)
     checks = {}
     for r in reports:
         for c in r["kernel_checks"]:
@@ -2283,12 +2283,14 @@ def phase_multihost(row: dict, cfg: TeraSortConfig,
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["by_shape"].append({
             "shape": list(shape), "processes": MH_PROCESSES,
-            "shared_card": True, "body": per_proc[0]["body"],
+            "shared_card": True,
             "bytes_moved": per_proc[0]["bytes_moved"],
             "ms": max(c["ms"] for c in per_proc),
             "plain_ms": max(c["plain_ms"] for c in per_proc),
             "library_ms": max(c["library_ms"] for c in per_proc),
             "local_dst_ms": max(c["local_dst_ms"] for c in per_proc),
+            "host_us_per_launch": max(c["host_us_per_launch"]
+                                      for c in per_proc),
             "bound_ms": per_proc[0]["bound_ms"],
             "ms_by_process": [c["ms"] for c in per_proc],
             "max_abs_err": err, "launches_by_path": by_shape[shape]})
@@ -2716,7 +2718,6 @@ def lockgraph_worker(out_path: str) -> None:
                          - min(start for start, _ in reads)),
             "rounds": chosen["rounds"], "launches": launches,
             "shapes": [[list(k), n] for k, n in sorted(shapes.items())],
-            "bodies": PATH_BODIES[LG_PATH],
             "orderings": sorted(f"{a} -> {b}" for a, b in graph.edges()),
             "tracked_sites": sites, "cycles": graph.cycles(),
             "report": graph.format_cycles()}, f)
@@ -2750,7 +2751,6 @@ def phase_analysis(row: dict) -> dict:
     if res["cycles"]:
         raise AssertionError(f"{LG_PATH}: {res['report']}")
     shapes = {tuple(shape): n for shape, n in res.pop("shapes")}
-    PATH_BODIES[LG_PATH] = res.pop("bodies")
     staged = MS_MAPS * LG_MAP_ROWS * (8 + MS_PAYLOAD)
     emit({"phase": "analysis", "step": "lockgraph_engine",
           "cut": f"the engine stage's records cut from 1 GiB to "
@@ -2803,7 +2803,6 @@ def main() -> None:
     launches.update(phase_analysis(row))
     row["launches"] = sum(launches.values())
     row["launches_by_path"] = launches
-    row["bodies_by_path"] = PATH_BODIES
     emit({"kernels": [row]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

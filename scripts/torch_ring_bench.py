@@ -2,7 +2,7 @@
 """Time the PyTorch port's ring all-to-all kernel at the main paths'
 block shapes, on one CUDA card.
 
-    python3 scripts/torch_ring_bench.py [--sweep] [--label NAME]
+    python3 scripts/torch_ring_bench.py [--sweep] [--terasort] [--label NAME]
 
 Imports ``sparkrdma_tpu_torch`` from the current directory, so run from
 the root of another checkout (with this script's path) it times that
@@ -13,15 +13,23 @@ cold, by rotating through copies of the blocks that touch more than
 100 MB, where the blocks fit in the L2, and warm too), the host's time
 per launch (100 launches, no synchronisation, median of 5 rounds; and
 its parts), the library transpose's time, a plain copy of the same
-bytes and the byte bound (H100 SXM, 3.35 TB/s). With ``--sweep``, and a wrapper that has the TMA
-body, also each body and, where the wrapper takes the TMA body, a grid
-of TMA tile sizes, stage counts and CTAs per SM. The card's
-``nvidia-smi`` name and power limit come first.
+bytes and the byte bound (H100 SXM, 3.35 TB/s). Against an older
+checkout whose wrapper picks one of two kernel bodies per launch (its
+``_launch`` takes the body's name: a bulk-copy body for blocks that are
+multiples of 16 bytes, ``aligned16`` in each line, and the load/store
+body for the rest), ``--sweep`` also times the load/store body forced
+onto every shape (``ldst``), and the host parts are the allocation and
+stream lookups only; against a one-body checkout ``--sweep`` adds
+nothing. ``--terasort`` then times the 1 GiB TeraSort step over the
+ring (``make_terasort_step``, rows made on the card from seed 0;
+median, least and most of 20 host-synchronised steps after two
+warm-ups). The card's ``nvidia-smi`` name and power limit come first.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import itertools
 import json
 import os
@@ -39,18 +47,23 @@ from sparkrdma_tpu_torch.ops import ring_exchange  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 << 20
 COLD_BYTES = 100 << 20
-# the block shapes the main paths launch the kernel at (chip_smoke.py):
-# 16-byte-aligned blocks (the TMA body), then blocks that are no multiple
-# of 16 bytes (the load/store body, chip_smoke.MISALIGNED_SHAPES and q64's)
+# the block shapes the main paths launch the kernel at in one process
+# (chip_smoke.py): 16-byte-aligned blocks, from 33.5 MB down to 16 bytes,
+# then blocks that are no multiple of 16 bytes
+# (chip_smoke.MISALIGNED_SHAPES and q64's)
 SHAPES = ((8, 8, 335544, 25), (8, 8, 1 << 21, 3), (8, 8, 1 << 22, 2),
           (8, 8, 1 << 21, 2), (8, 8, 1 << 18, 2), (8, 8, 58982, 2),
+          (8, 8, 337386, 8), (8, 8, 65536, 25), (4, 4, 55924, 25),
+          (8, 8, 1 << 19, 3), (8, 8, 1 << 19, 2), (8, 8, 1 << 17, 2),
+          (8, 8, 25000, 5), (8, 8, 14746, 2), (8, 8, 8192, 3),
+          (8, 8, 4095, 4), (8, 8, 512, 4), (8, 8, 388, 4), (8, 8, 256, 4),
+          (8, 8, 256, 3), (8, 8, 100, 4), (8, 8, 46, 4), (8, 8, 2, 4),
+          (8, 8, 100, 2), (8, 8, 46, 2), (8, 8, 2, 2),
           (8, 8, 27962, 25), (8, 8, 83886, 25), (8, 8, 69905, 10),
           (4, 4, 334406, 25), (8, 8, 3277, 1), (8, 8, 819, 3),
           (8, 8, 4095, 3), (8, 8, 4095, 5))
-SWEEP = tuple((tile << 10, stages, ctas)
-              for tile, stages, ctas in itertools.product(
-                  (8, 16, 32, 64), (2, 3, 4, 6), (1, 2, 3, 4))
-              if (tile << 10) * stages * ctas <= 224 << 10)
+TERASORT_BYTES = 1 << 30
+TERASORT_STEPS = 20
 
 
 def cuda_ms(fn, repeats: int = 7, per_repeat: int = 10) -> float:
@@ -113,12 +126,18 @@ def host_us(fn, blocks: torch.Tensor, launches: int = 100,
     return statistics.median(per_call)
 
 
+def two_bodies() -> bool:
+    """Whether the checkout's wrapper picks one of two kernel bodies per
+    launch (its ``_launch`` takes the body's name)."""
+    return "body" in inspect.signature(ring_exchange._launch).parameters
+
+
 def host_breakdown(blocks: torch.Tensor) -> dict:
     """Host µs per call of the wrapper's parts: the output allocation,
     the current stream's lookup (as a Stream object and as a raw
-    handle), and (where the wrapper has them) the
-    pointer table with the body's choice, and the launch call itself
-    (struct fill, ``ctypes`` call, C launcher) into a fixed output."""
+    handle), and on a one-body checkout the pointer table and the launch
+    call itself (struct fill, ``ctypes`` call, C launcher) into a fixed
+    output."""
     dev = blocks.device
     parts = {"empty_like": host_us(torch.empty_like, blocks),
              "current_stream": host_us(
@@ -127,49 +146,71 @@ def host_breakdown(blocks: torch.Tensor) -> dict:
              "raw_stream": host_us(
                  lambda b: torch._C._cuda_getCurrentRawStream(
                      b.get_device()), blocks)}
-    if hasattr(ring_exchange, "body_for"):
-        out = torch.empty_like(blocks)
-        block_bytes = blocks.shape[2] * blocks.shape[3] * 4
-
-        def table(b):
-            src, dst = ring_exchange._pointer_table(b, out)
-            return ring_exchange.body_for(src, dst, block_bytes)
-        parts["pointer_table_and_body"] = host_us(table, blocks)
-        src, dst = ring_exchange._pointer_table(blocks, out)
-        body = ring_exchange.body_for(src, dst, block_bytes)
-        parts["launch"] = host_us(
-            lambda b: ring_exchange._launch(b, out, body, src, dst), blocks)
-        # the C launcher alone, with the struct filled and the stream
-        # looked up once; and the bare ctypes call, refused before any
-        # CUDA call (0 shards)
-        lib = ring_exchange._library()
-        bases = ring_exchange._per_thread.bases
-        addr = ring_exchange.ctypes.addressof(bases)
-        stream = torch._C._cuda_getCurrentRawStream(blocks.get_device())
-        use_tma = int(body == "tma")
-        args = (block_bytes, use_tma, ring_exchange.TMA_TILE_BYTES,
-                ring_exchange.TMA_STAGES, ring_exchange.TMA_CTAS_PER_SM,
-                stream)
-        parts["c_launcher"] = host_us(
-            lambda b: lib.ring_all_to_all_launch(addr, len(src), *args),
-            blocks)
-        parts["ctypes_call"] = host_us(
-            lambda b: lib.ring_all_to_all_launch(addr, 0, *args), blocks)
+    if two_bodies():
+        return parts
+    out = torch.empty_like(blocks)
+    src, dst = ring_exchange._pointer_table(blocks, out)
+    parts["pointer_table"] = host_us(
+        lambda b: ring_exchange._pointer_table(b, out), blocks)
+    parts["launch"] = host_us(
+        lambda b: ring_exchange._launch(b, src, dst), blocks)
+    # the C launcher alone, with the struct filled and the stream looked
+    # up once; and the bare ctypes call, refused before any CUDA call (0
+    # shards)
+    lib = ring_exchange._library()
+    addr = ring_exchange.ctypes.addressof(ring_exchange._per_thread.bases)
+    args = (blocks.shape[2] * blocks.shape[3] * 4,
+            torch._C._cuda_getCurrentRawStream(blocks.get_device()))
+    parts["c_launcher"] = host_us(
+        lambda b: lib.ring_all_to_all_launch(addr, len(src), *args), blocks)
+    parts["ctypes_call"] = host_us(
+        lambda b: lib.ring_all_to_all_launch(addr, 0, *args), blocks)
     return parts
 
 
-def body_call(body: str, **tma):
-    def call(blocks):
-        out = torch.empty_like(blocks)
-        src, dst = ring_exchange._pointer_table(blocks, out)
-        ring_exchange._launch(blocks, out, body, src, dst, **tma)
-        return out
-    return call
+def ldst_call(blocks: torch.Tensor) -> torch.Tensor:
+    """The two-body wrapper with its load/store body forced."""
+    out = torch.empty_like(blocks)
+    src, dst = ring_exchange._pointer_table(blocks, out)
+    ring_exchange._launch(blocks, out, "ldst", src, dst)
+    return out
+
+
+def terasort_steps() -> dict:
+    """Host-clock ms of ``TERASORT_STEPS`` synchronised 1 GiB TeraSort
+    steps over the ring, after two warm-ups."""
+    from sparkrdma_tpu_torch.models.terasort import (TeraSortConfig,
+                                                     make_terasort_step)
+    from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+
+    shards = 8
+    cfg = TeraSortConfig(rows_per_device=TERASORT_BYTES // 100 // shards)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = torch.randint(-2**31, 2**31 - 1,
+                         (shards, cfg.rows_per_device, 1 + cfg.payload_words),
+                         dtype=torch.int32, device="cuda", generator=gen)
+    step = make_terasort_step(VirtualMesh(shards), cfg, impl="ring")
+    for _ in range(2):
+        step(rows)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TERASORT_STEPS):
+        t0 = time.perf_counter()
+        _, counts, overflowed = step(rows)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if overflowed.any().item():
+            raise AssertionError("TeraSort receive buffer overflowed")
+    return {"terasort_step_ms": {"median": statistics.median(times),
+                                 "min": min(times), "max": max(times),
+                                 "steps": TERASORT_STEPS,
+                                 "data_bytes": rows.nbytes}}
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--sweep", action="store_true")
+    parser.add_argument("--terasort", action="store_true")
     parser.add_argument("--label", default="")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -179,7 +220,7 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    has_bodies = hasattr(ring_exchange, "body_for")
+    has_bodies = two_bodies()
     for shape in SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(sum(shape))
         blocks = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
@@ -200,31 +241,17 @@ def main() -> None:
                 # practical rate for a copy of this size
                 "copy": timed(torch.clone, blocks)}
         line["share"] = bound_ms / line["kernel"]["ms"]
-        if has_bodies:
-            out = torch.empty_like(blocks)
-            line["body"] = ring_exchange.body_for(
-                *ring_exchange._pointer_table(blocks, out),
-                shape[2] * shape[3] * 4)
-            del out
+        line["aligned16"] = shape[2] * shape[3] % 4 == 0
         if args.sweep and has_bodies:
-            if not torch.equal(body_call("ldst")(blocks), want):
+            if not torch.equal(ldst_call(blocks), want):
                 raise AssertionError(f"ldst body wrong at {shape}")
-            line["ldst"] = timed(body_call("ldst"), blocks)
-        if args.sweep and has_bodies and line["body"] == "tma":
-            sweep = []
-            for tile, stages, ctas in SWEEP:
-                call = body_call("tma", tile_bytes=tile, stages=stages,
-                                 ctas_per_sm=ctas)
-                if not torch.equal(call(blocks), want):
-                    raise AssertionError(
-                        f"tma body wrong at {shape}, {tile, stages, ctas}")
-                sweep.append({"tile_bytes": tile, "stages": stages,
-                              "ctas_per_sm": ctas,
-                              **timed(call, blocks)})
-            line["tma_sweep"] = sorted(sweep, key=lambda r: r["ms"])
+            line["ldst"] = timed(ldst_call, blocks)
         print(json.dumps(line), flush=True)
         del blocks, want
         torch.cuda.empty_cache()
+    if args.terasort:
+        print(json.dumps({"label": args.label, "nvidia_smi": smi,
+                          **terasort_steps()}), flush=True)
 
 
 if __name__ == "__main__":

@@ -12,36 +12,28 @@
 //
 // What bounds it: bytes. It reads and writes D*D*C*W*4 bytes each, with
 // no arithmetic, so its least time is 2*D*D*C*W*4 bytes over the card's
-// memory rate (H100 SXM: 3.35 TB/s). Two bodies serve that bound; the
-// host picks one per launch from the alignment of the blocks:
+// memory rate (H100 SXM: 3.35 TB/s). One load/store body serves that
+// bound for every launch, whatever the alignment of the blocks (bases
+// and block size need only be multiples of 4 bytes):
 //
-// - TMA body (every source and destination base and the block size
-//   C*W*4 are multiples of 16, which every block the caching allocator
-//   hands out meets): a persistent grid of at most ctas_per_sm CTAs per
-//   SM walks the (pair, tile) work items, tile = blockIdx.x, += gridDim.x.
-//   In each CTA one thread runs a ring of `stages` tiles in dynamic
-//   shared memory: a cp.async.bulk load per tile, completion counted in
-//   bytes on the stage's mbarrier, then a cp.async.bulk store from the
-//   same stage back to device memory. `stages - 1` loads stay in flight
-//   behind each store, so each SM keeps tens of kilobytes moving without
-//   spending registers or per-thread instructions on the copy, and no
-//   block of a few kilobytes is scheduled on its own.
-// - Load/store body (anything else: bases and block size multiples of 4
-//   only). Each pair is one contiguous copy of C*W*4 bytes between two
+// - Each pair is one contiguous copy of C*W*4 bytes between two
 //   4-byte-aligned addresses, cut so that every 16-byte word it loads or
 //   stores lies wholly inside the pair's bytes: a scalar head until the
 //   destination is 16-byte aligned (one vector longer where the first
 //   aligned source vector would start before the block), an interior of
 //   16-byte streaming loads and stores, and a scalar tail; head and tail
-//   are at most 15 words together. Where the source is r = 1..3 words
-//   past a 16-byte boundary at the interior's start, each lane loads
-//   aligned source vectors and builds each output from words r..3 of its
-//   own and words 0..r-1 of its neighbour's, handed over by a warp
-//   shuffle, so every source vector is read from memory once whatever the
-//   alignment. The grid is sized from the work: (tile groups, pairs), one
-//   warp per tile of 128 vectors (2 KB, four loads in flight a lane), so
-//   a large block is hundreds of CTAs a pair and a 13 KB block still
-//   spreads over two CTAs of four warps.
+//   are at most 15 words together, and both are empty when the pair's
+//   bases and the block size are multiples of 16 bytes.
+// - Where the source is r = 1..3 words past a 16-byte boundary at the
+//   interior's start, each lane loads aligned source vectors and builds
+//   each output from words r..3 of its own and words 0..r-1 of its
+//   neighbour's, handed over by a warp shuffle, so every source vector is
+//   read from memory once whatever the alignment.
+// - The grid is sized from the work: (tile groups, pairs), one warp per
+//   tile of 128 vectors (2 KB, four loads in flight a lane), so a large
+//   block is hundreds of CTAs a pair, a 13 KB block still spreads over
+//   two CTAs of four warps, and a block of a few words is one warp's
+//   scalar words, loaded before and stored after its vectors.
 //
 // The D source and D destination bases travel by value in the kernel's
 // parameter block (Bases, 2 KB), so a launch needs no device-side
@@ -54,9 +46,7 @@
 // other processes' receive buffers, opened from CUDA IPC handles
 // (ring_ipc_*, at the end). The full launch is the range s0 = 0, S = G =
 // D. A launch runs on the caller's stream, allocates nothing and does not
-// synchronise. An mbarrier wait that outlasts
-// kWaitTimeoutNs traps, so a fault in the pipeline ends the kernel with
-// an error instead of hanging the card.
+// synchronise.
 
 #include <cstdint>
 #include <cstring>
@@ -71,8 +61,6 @@ struct Bases {
   long long src[kMaxShards];
   long long dst[kMaxShards];
 };
-
-// ---- load/store body -------------------------------------------------
 
 constexpr int kLdstThreads = 128;                    // 4 warps a CTA
 constexpr int kLdstWarps = kLdstThreads / 32;
@@ -214,205 +202,6 @@ ring_ldst_kernel(const __grid_constant__ Bases bases, int num_src,
   if (w < block_words) dst[w] = word;
 }
 
-// ---- TMA body --------------------------------------------------------
-
-constexpr int kTmaThreads = 32;  // one warp; thread 0 issues every copy
-constexpr int kMaxStages = 8;
-// Hopper's per-CTA cap (227 KB) less room for the static mbarriers
-constexpr int kMaxSmemBytes = 232448 - 1024;
-constexpr long long kMaxTileBytes = (1 << 20) - 16;  // mbarrier tx limit
-constexpr unsigned long long kWaitTimeoutNs = 2000000000ull;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(1)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait for the phase of `bar` with the given parity to complete.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const unsigned long long start = global_ns();
-  while (!mbar_try_wait(bar, parity)) {
-    if (global_ns() - start > kWaitTimeoutNs) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t smem, const void* gmem,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem),
-      "l"(gmem), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* gmem, uint32_t smem,
-                                           uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-          gmem),
-      "r"(smem), "r"(bytes)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-struct Tile {
-  const char* src;
-  char* dst;
-  uint32_t bytes;
-};
-
-// Work item t: tile k of the block that source shard s0 + i sends to
-// destination shard j, pair = j * S + i (as the load/store body's grid).
-__device__ __forceinline__ Tile tile_at(const Bases& bases, int num_src,
-                                        int src_begin, long long block_bytes,
-                                        long long tiles_per_block,
-                                        uint32_t tile_bytes, long long t) {
-  const long long pair = t / tiles_per_block;
-  const long long off = (t - pair * tiles_per_block) * tile_bytes;
-  const int dst_shard = static_cast<int>(pair / num_src);
-  const int src_local = static_cast<int>(pair % num_src);
-  const long long left = block_bytes - off;
-  Tile tile;
-  tile.src = reinterpret_cast<const char*>(bases.src[src_local]) +
-             dst_shard * block_bytes + off;
-  tile.dst = reinterpret_cast<char*>(bases.dst[dst_shard]) +
-             (src_begin + src_local) * block_bytes + off;
-  tile.bytes = static_cast<uint32_t>(left < tile_bytes ? left : tile_bytes);
-  return tile;
-}
-
-__global__ void __launch_bounds__(kTmaThreads)
-ring_tma_kernel(const __grid_constant__ Bases bases, int num_src,
-                int src_begin, long long block_bytes, long long tiles_per_block,
-                long long num_tiles, uint32_t tile_bytes, int stages) {
-  extern __shared__ __align__(128) unsigned char stage_buf[];
-  __shared__ __align__(8) unsigned long long full[kMaxStages];
-  if (threadIdx.x != 0) return;
-
-  const uint32_t buf = smem_addr(stage_buf);
-  for (int s = 0; s < stages; ++s) mbar_init(smem_addr(&full[s]));
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-
-  // this CTA's tiles are blockIdx.x + i * gridDim.x, i in [0, n)
-  const long long n =
-      (num_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
-  const int ahead = stages - 1;  // loads in flight behind each store
-  auto load = [&](long long i) {
-    const Tile tile = tile_at(bases, num_src, src_begin, block_bytes,
-                              tiles_per_block, tile_bytes,
-                              blockIdx.x + i * gridDim.x);
-    const int s = static_cast<int>(i % stages);
-    const uint32_t bar = smem_addr(&full[s]);
-    mbar_expect_tx(bar, tile.bytes);
-    bulk_load(buf + s * tile_bytes, tile.src, tile.bytes, bar);
-  };
-
-  for (long long i = 0; i < ahead && i < n; ++i) load(i);
-  for (long long i = 0; i < n; ++i) {
-    const int s = static_cast<int>(i % stages);
-    // the stage's (i / stages)-th load has landed
-    mbar_wait(smem_addr(&full[s]), static_cast<uint32_t>((i / stages) & 1));
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    const Tile tile = tile_at(bases, num_src, src_begin, block_bytes,
-                              tiles_per_block, tile_bytes,
-                              blockIdx.x + i * gridDim.x);
-    bulk_store(tile.dst, buf + s * tile_bytes, tile.bytes);
-    if (i + ahead < n) {
-      // every store but this one has read its stage: tile i - 1's stage
-      // is free for tile i + ahead
-      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-      load(i + ahead);
-    }
-  }
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Per-device values read once: the SM count, and the dynamic shared
-// memory size the TMA kernel has been allowed so far.
-constexpr int kMaxDevices = 64;
-int g_sms[kMaxDevices];
-int g_smem_allowed[kMaxDevices];
-
-int launch_tma(const Bases& bases, int num_dst, int src_begin, int num_src,
-               long long block_bytes, int tile_bytes, int stages,
-               int ctas_per_sm, cudaStream_t stream) {
-  const long long smem = static_cast<long long>(tile_bytes) * stages;
-  if (tile_bytes < 16 || tile_bytes % 16 != 0 || tile_bytes > kMaxTileBytes ||
-      stages < 2 || stages > kMaxStages || smem > kMaxSmemBytes ||
-      ctas_per_sm < 1 || block_bytes % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  for (int k = 0; k < num_src; ++k) {
-    if (bases.src[k] & 15) return static_cast<int>(cudaErrorMisalignedAddress);
-  }
-  for (int k = 0; k < num_dst; ++k) {
-    if (bases.dst[k] & 15) return static_cast<int>(cudaErrorMisalignedAddress);
-  }
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= kMaxDevices) {
-    return static_cast<int>(cudaErrorInvalidDevice);
-  }
-  if (g_sms[dev] == 0) {
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    g_sms[dev] = sms;
-  }
-  if (g_smem_allowed[dev] < smem) {
-    err = cudaFuncSetAttribute(ring_tma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    g_smem_allowed[dev] = static_cast<int>(smem);
-  }
-  const long long tiles_per_block = (block_bytes + tile_bytes - 1) / tile_bytes;
-  const long long num_tiles =
-      static_cast<long long>(num_dst) * num_src * tiles_per_block;
-  long long grid = static_cast<long long>(ctas_per_sm) * g_sms[dev];
-  if (grid > num_tiles) grid = num_tiles;
-  ring_tma_kernel<<<static_cast<unsigned>(grid), kTmaThreads,
-                    static_cast<size_t>(smem), stream>>>(
-      bases, num_src, src_begin, block_bytes, tiles_per_block, num_tiles,
-      static_cast<uint32_t>(tile_bytes), stages);
-  return static_cast<int>(cudaGetLastError());
-}
-
 int launch_ldst(const Bases& bases, int num_dst, int src_begin, int num_src,
                 long long block_bytes, cudaStream_t stream) {
   const long long block_words = block_bytes / 4;
@@ -430,19 +219,15 @@ int launch_ldst(const Bases& bases, int num_dst, int src_begin, int num_src,
 }
 
 int launch(const void* bases, int num_dst, int src_begin, int num_src,
-           long long block_bytes, int use_tma, int tile_bytes, int stages,
-           int ctas_per_sm, void* stream) {
+           long long block_bytes, void* stream) {
   if (num_dst < 1 || num_dst > kMaxShards || num_src < 1 ||
       num_src > kMaxShards || src_begin < 0 ||
       src_begin + num_src > num_dst || block_bytes < 4 ||
       block_bytes % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Bases& b = *static_cast<const Bases*>(bases);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return use_tma ? launch_tma(b, num_dst, src_begin, num_src, block_bytes,
-                              tile_bytes, stages, ctas_per_sm, s)
-                 : launch_ldst(b, num_dst, src_begin, num_src, block_bytes, s);
+  return launch_ldst(*static_cast<const Bases*>(bases), num_dst, src_begin,
+                     num_src, block_bytes, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -450,17 +235,11 @@ int launch(const void* bases, int num_dst, int src_begin, int num_src,
 // bases: host pointer to a Bases (D source bases, then D destination
 // bases, each a device address); the launch copies it into the kernel's
 // parameters, so it need not outlive the call. block_bytes = C*W*4.
-// use_tma selects the body (the caller checks alignment; the TMA body
-// refuses misaligned bases). tile_bytes, stages and ctas_per_sm shape
-// the TMA body and are ignored by the other. Returns cudaGetLastError()
-// after the launch, or the error that kept it from launching (0 =
-// launched).
+// Returns cudaGetLastError() after the launch, or the error that kept it
+// from launching (0 = launched).
 extern "C" int ring_all_to_all_launch(const void* bases, int num_shards,
-                                      long long block_bytes, int use_tma,
-                                      int tile_bytes, int stages,
-                                      int ctas_per_sm, void* stream) {
-  return launch(bases, num_shards, 0, num_shards, block_bytes, use_tma,
-                tile_bytes, stages, ctas_per_sm, stream);
+                                      long long block_bytes, void* stream) {
+  return launch(bases, num_shards, 0, num_shards, block_bytes, stream);
 }
 
 // The launch over source shards [src_begin, src_begin + num_src) of
@@ -473,11 +252,8 @@ extern "C" int ring_all_to_all_launch(const void* bases, int num_shards,
 extern "C" int ring_all_to_all_launch_range(const void* bases, int num_dst,
                                             int src_begin, int num_src,
                                             long long block_bytes,
-                                            int use_tma, int tile_bytes,
-                                            int stages, int ctas_per_sm,
                                             void* stream) {
-  return launch(bases, num_dst, src_begin, num_src, block_bytes, use_tma,
-                tile_bytes, stages, ctas_per_sm, stream);
+  return launch(bases, num_dst, src_begin, num_src, block_bytes, stream);
 }
 
 extern "C" int ring_all_to_all_max_shards() { return kMaxShards; }

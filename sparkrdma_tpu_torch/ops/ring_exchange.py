@@ -5,14 +5,14 @@ Port of ``sparkrdma_tpu/ops/ring_exchange.py``. There the Pallas kernel
 shift-register ring of remote DMAs over ICI. Over the port's virtual
 mesh all D shards share one card's memory, so the same function is one
 block transpose, done by the CUDA kernel in ``csrc/ring_exchange.cu``
-(its header says what bounds it and how the design follows).
+(its header says what bounds it and how the design follows): one
+load/store body for every launch, whatever the blocks' alignment.
 
 ``ring_all_to_all`` is the wrapper: a CUDA tensor always reaches the
 kernel (or an exception); a CPU tensor takes ``ring_all_to_all_plain``,
 the plain PyTorch version that the CPU tests and the on-card comparison
-use. ``LAUNCHES`` counts kernel launches, ``SHAPES`` counts them per
-block shape ``(D, D, C, W)`` and ``BODIES`` per kernel body (``"tma"``
-or ``"ldst"``, chosen per launch by ``body_for``).
+use. ``LAUNCHES`` counts kernel launches and ``SHAPES`` counts them per
+block shape ``(D, D, C, W)``.
 
 A launch passes the D source and D destination bases to the kernel by
 value (``_Bases``, a struct in the kernel's parameter block), so it
@@ -42,16 +42,31 @@ import torch.distributed as dist
 
 LAUNCHES = 0
 SHAPES: Dict[Tuple[int, ...], int] = {}
-BODIES: Dict[str, int] = {}
 PEER = {"arena_growths": 0, "ipc_opens": 0, "ipc_open_s": 0.0}
 _KERNEL = "ring_exchange"
 
 MAX_SHARDS = 128          # kMaxShards in csrc/ring_exchange.cu
-# the TMA body's shape: bytes per tile, tiles in flight per CTA (shared
-# memory = TILE_BYTES * STAGES), CTAs per SM of the persistent grid
-TMA_TILE_BYTES = 16 << 10
-TMA_STAGES = 4
-TMA_CTAS_PER_SM = 2
+# csrc/ring_exchange.cu's extern "C" functions: name -> (argtypes,
+# restype); a byte buffer (c_char_p) stands for a void pointer
+_P = ctypes.POINTER
+SIGNATURES = {
+    "ring_all_to_all_launch": (
+        (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p),
+        ctypes.c_int),
+    "ring_all_to_all_launch_range": (
+        (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_longlong, ctypes.c_void_p), ctypes.c_int),
+    "ring_all_to_all_max_shards": ((), ctypes.c_int),
+    "ring_all_to_all_error_string": ((ctypes.c_int,), ctypes.c_char_p),
+    "ring_ipc_handle_bytes": ((), ctypes.c_int),
+    "ring_ipc_alloc": ((ctypes.c_longlong, _P(ctypes.c_void_p)),
+                       ctypes.c_int),
+    "ring_ipc_free": ((ctypes.c_void_p,), ctypes.c_int),
+    "ring_ipc_export": ((ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p,
+                         _P(ctypes.c_longlong)), ctypes.c_int),
+    "ring_ipc_open": ((ctypes.c_char_p, _P(ctypes.c_void_p)), ctypes.c_int),
+    "ring_ipc_close": ((ctypes.c_void_p,), ctypes.c_int),
+}
 
 
 class _Bases(ctypes.Structure):
@@ -94,16 +109,6 @@ def _pointer_table(blocks: torch.Tensor, out: torch.Tensor
             [dst0 + i * shard_bytes for i in range(d)])
 
 
-def body_for(src: Sequence[int], dst: Sequence[int], block_bytes: int
-             ) -> str:
-    """The kernel body a launch takes: ``"tma"`` (bulk copies) when every
-    base and the block size are multiples of 16 bytes, else ``"ldst"``
-    (loads and stores)."""
-    aligned = block_bytes % 16 == 0 and all(
-        p % 16 == 0 for bases in (src, dst) for p in bases)
-    return "tma" if aligned else "ldst"
-
-
 def _library() -> ctypes.CDLL:
     """The kernel's library, built and bound on first use."""
     global _lib
@@ -111,33 +116,9 @@ def _library() -> ctypes.CDLL:
         from sparkrdma_tpu_torch.ops._build import load
 
         lib = load(_KERNEL)
-        lib.ring_all_to_all_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.ring_all_to_all_launch.restype = ctypes.c_int
-        lib.ring_all_to_all_launch_range.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-        lib.ring_all_to_all_launch_range.restype = ctypes.c_int
-        lib.ring_ipc_handle_bytes.argtypes = []
-        lib.ring_ipc_handle_bytes.restype = ctypes.c_int
-        lib.ring_ipc_alloc.argtypes = [ctypes.c_longlong,
-                                       ctypes.POINTER(ctypes.c_void_p)]
-        lib.ring_ipc_open.argtypes = [ctypes.c_char_p,
-                                      ctypes.POINTER(ctypes.c_void_p)]
-        lib.ring_ipc_export.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p,
-            ctypes.POINTER(ctypes.c_longlong)]
-        for name in ("ring_ipc_free", "ring_ipc_close"):
-            getattr(lib, name).argtypes = [ctypes.c_void_p]
-        for name in ("ring_ipc_alloc", "ring_ipc_free", "ring_ipc_export",
-                     "ring_ipc_open", "ring_ipc_close"):
-            getattr(lib, name).restype = ctypes.c_int
-        lib.ring_all_to_all_max_shards.argtypes = []
-        lib.ring_all_to_all_max_shards.restype = ctypes.c_int
-        lib.ring_all_to_all_error_string.argtypes = [ctypes.c_int]
-        lib.ring_all_to_all_error_string.restype = ctypes.c_char_p
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = list(argtypes), restype
         if lib.ring_all_to_all_max_shards() != MAX_SHARDS:
             raise RuntimeError("csrc/ring_exchange.cu and ring_exchange.py "
                                "disagree on MAX_SHARDS")
@@ -145,10 +126,7 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _launch(blocks: torch.Tensor, out: Optional[torch.Tensor], body: str,
-            src: Sequence[int], dst: Sequence[int],
-            tile_bytes: int = TMA_TILE_BYTES, stages: int = TMA_STAGES,
-            ctas_per_sm: int = TMA_CTAS_PER_SM,
+def _launch(blocks: torch.Tensor, src: Sequence[int], dst: Sequence[int],
             src_begin: Optional[int] = None) -> None:
     """One launch with the given bases: the full launch (``src_begin``
     None, ``len(src) == len(dst)``), or the range launch over sources
@@ -165,17 +143,14 @@ def _launch(blocks: torch.Tensor, out: Optional[torch.Tensor], body: str,
     stream = torch._C._cuda_getCurrentRawStream(blocks.get_device())
     if src_begin is None:
         err = lib.ring_all_to_all_launch(
-            ctypes.addressof(bases), len(src), block_bytes,
-            int(body == "tma"), tile_bytes, stages, ctas_per_sm, stream)
+            ctypes.addressof(bases), len(src), block_bytes, stream)
     else:
         err = lib.ring_all_to_all_launch_range(
             ctypes.addressof(bases), len(dst), src_begin, len(src),
-            block_bytes, int(body == "tma"), tile_bytes, stages,
-            ctas_per_sm, stream)
+            block_bytes, stream)
     if err != 0:
-        raise RuntimeError(
-            f"ring_all_to_all launch failed ({body} body): "
-            + lib.ring_all_to_all_error_string(err).decode())
+        raise RuntimeError("ring_all_to_all launch failed: "
+                           + lib.ring_all_to_all_error_string(err).decode())
 
 
 def ring_all_to_all(blocks: torch.Tensor) -> torch.Tensor:
@@ -203,12 +178,10 @@ def ring_all_to_all(blocks: torch.Tensor) -> torch.Tensor:
     src, dst = _pointer_table(blocks, out)
     if blocks.numel() == 0:
         return out
-    body = body_for(src, dst, blocks.shape[2] * blocks.shape[3] * 4)
-    _launch(blocks, out, body, src, dst)
+    _launch(blocks, src, dst)
     LAUNCHES += 1
     shape = tuple(blocks.shape)
     SHAPES[shape] = SHAPES.get(shape, 0) + 1
-    BODIES[body] = BODIES.get(body, 0) + 1
     return out
 
 
@@ -402,12 +375,10 @@ def ring_all_to_all_peers(blocks: torch.Tensor, mesh) -> torch.Tensor:
     torch.cuda.current_stream(blocks.device).synchronize()
     dist.barrier(group=mesh.group)
     if blocks.numel():
-        body = body_for(src, dst, blocks.shape[2] * blocks.shape[3] * 4)
-        _launch(blocks, None, body, src, dst, src_begin=mesh.first_shard)
+        _launch(blocks, src, dst, src_begin=mesh.first_shard)
         LAUNCHES += 1
         shape = tuple(blocks.shape)
         SHAPES[shape] = SHAPES.get(shape, 0) + 1
-        BODIES[body] = BODIES.get(body, 0) + 1
     torch.cuda.current_stream(blocks.device).synchronize()
     dist.barrier(group=mesh.group)
     return out

@@ -1,7 +1,8 @@
 """Card-only tests of the port: the CUDA ring all-to-all kernel against its
-plain version (at the TeraSort, chunked and workload block widths; both
-bodies, at the TMA body's tile edges and pipeline depths, at the shard
-limit, on a side stream and replayed in a CUDA graph), its argument
+plain version (at the TeraSort, chunked and workload block widths; at
+its tile edges, every alignment and the tiny aligned blocks the paths
+launch, inside guard words; at the shard limit, on a side stream and
+replayed in a CUDA graph), its argument
 checks, the TeraSort step and the chunked exchange on the card against
 the same calls on the CPU, q95 and q64 on the ring against ``dense``,
 pinned staging, the round and hierarchical drivers, and a mesh-mode
@@ -116,43 +117,26 @@ def test_chunked_exchange_on_card_matches_cpu(cuda, impl):
         np.testing.assert_array_equal(g, w)
 
 
-TILE_WORDS = tre.TMA_TILE_BYTES // 4
-
-
-def _bodies_launched(fn):
-    """``fn()`` and the kernel launches it made, per body."""
-    before = dict(tre.BODIES)
-    out = fn()
-    torch.cuda.synchronize()
-    return out, {k: v - before.get(k, 0) for k, v in tre.BODIES.items()
-                 if v != before.get(k, 0)}
+# the kernel's warp tile: kTileVecs = 128 vectors of 4 words; a CTA of
+# four warps takes four tiles
+TILE_WORDS = 512
 
 
 @pytest.mark.parametrize("d", [1, 2, 3, 8])
 @pytest.mark.parametrize("c,w", [
-    (100, 4),                      # a block smaller than one tile
-    (TILE_WORDS // 2, 2),          # exactly one tile
-    (TILE_WORDS // 4 + 1, 4),      # one tile + 16 bytes
-    (3 * TILE_WORDS // 4 + 7, 4),  # three tiles + a 112-byte tail
+    (3, 5),                        # shorter than a head plus a tail
+    (TILE_WORDS // 4, 4),          # exactly one tile
+    (TILE_WORDS + 1, 1),           # one tile + 1 word
+    (3 * TILE_WORDS + 7, 4),       # three tile groups and a 28-word tail
 ])
-def test_tma_body_at_tile_edges(cuda, d, c, w):
+def test_load_store_body_at_tile_edges(cuda, d, c, w):
     x = _blocks((d, d, c, w), d * 1000 + c + w, cuda)
-    got, bodies = _bodies_launched(lambda: tre.ring_all_to_all(x))
-    assert bodies == {"tma": 1}
-    assert torch.equal(got, tre.ring_all_to_all_plain(x))
-
-
-@pytest.mark.parametrize("stages,ctas_per_sm", [(2, 1), (3, 2), (8, 1)])
-def test_tma_body_pipeline_depths(cuda, stages, ctas_per_sm):
-    """Other stage counts and grids than the default, with more tiles
-    per CTA than stages: the stage parities wrap several times."""
-    x = _blocks((8, 8, 5 * TILE_WORDS // 4 + 3, 4), stages, cuda)
-    out = torch.empty_like(x)
-    src, dst = tre._pointer_table(x, out)
-    tre._launch(x, out, "tma", src, dst, tile_bytes=4096, stages=stages,
-                ctas_per_sm=ctas_per_sm)
+    before = tre.LAUNCHES
+    got = tre.ring_all_to_all(x)
     torch.cuda.synchronize()
-    assert torch.equal(out, tre.ring_all_to_all_plain(x))
+    assert tre.LAUNCHES == before + 1
+    assert torch.equal(got, tre.ring_all_to_all_plain(x))
+    assert torch.equal(got, x.transpose(0, 1).contiguous())
 
 
 @pytest.mark.parametrize("offset,c,w", [(1, 6, 8), (0, 3, 3), (0, 5, 7)])
@@ -162,8 +146,8 @@ def test_unaligned_views_take_the_load_store_body(cuda, offset, c, w):
     d = 4
     flat = _blocks((offset + d * d * c * w,), 7 + c, cuda)
     x = flat[offset:].view(d, d, c, w)
-    got, bodies = _bodies_launched(lambda: tre.ring_all_to_all(x))
-    assert bodies == {"ldst": 1}
+    got = tre.ring_all_to_all(x)
+    torch.cuda.synchronize()
     assert torch.equal(got, tre.ring_all_to_all_plain(x))
 
 
@@ -201,10 +185,9 @@ def test_load_store_body_alignment_sweep(cuda, offset, block_mod, d):
             if ranged:      # sources [0, d // 2), then [d // 2, d)
                 for s0, s1 in ((0, d // 2), (d // 2, d)):
                     if s1 > s0:
-                        tre._launch(x, out, "ldst", src[s0:s1], dst,
-                                    src_begin=s0)
+                        tre._launch(x, src[s0:s1], dst, src_begin=s0)
             else:
-                tre._launch(x, out, "ldst", src, dst)
+                tre._launch(x, src, dst)
             torch.cuda.synchronize()
             case = (n, ranged)
             assert torch.equal(out, want), case
@@ -212,23 +195,41 @@ def test_load_store_body_alignment_sweep(cuda, offset, block_mod, d):
             assert (buf[lo + d * d * n:] == SENTINEL).all(), case
 
 
-def test_tma_body_refuses_a_misaligned_base(cuda):
-    """Asked for the TMA body on a misaligned base, the launcher refuses
-    and the wrapper raises; nothing is copied."""
-    flat = _blocks((1 + 2 * 2 * 4 * 4,), 5, cuda)
-    x = flat[1:].view(2, 2, 4, 4)
-    out = torch.zeros_like(x)
-    src, dst = tre._pointer_table(x, out)
-    with pytest.raises(RuntimeError, match="tma body"):
-        tre._launch(x, out, "tma", src, dst)
+# the 16-byte-aligned blocks of 64 KB and less that the paths launch the
+# kernel at (q95, q64, the engine's q95, the CLI's engine-mesh demo,
+# device_bench's defaults)
+TINY_ALIGNED_SHAPES = ((8, 8, 2, 2), (8, 8, 46, 2), (8, 8, 100, 2),
+                       (8, 8, 2, 4), (8, 8, 46, 4), (8, 8, 100, 4),
+                       (8, 8, 256, 4), (8, 8, 388, 4), (8, 8, 512, 4),
+                       (8, 8, 256, 3), (8, 8, 4095, 4))
+
+
+@pytest.mark.parametrize("shape", TINY_ALIGNED_SHAPES)
+def test_tiny_aligned_blocks_inside_guard_words(cuda, shape):
+    """A launch at a tiny aligned block shape, into an output with guard
+    words on both sides: bit for bit the plain version and
+    ``transpose(0, 1).contiguous()``, and the guard words untouched."""
+    x = _blocks(shape, sum(shape), cuda)
+    n = x.numel()
+    buf = torch.full((2 * GUARD + 4 + n,), SENTINEL, dtype=torch.int32,
+                     device=cuda)
+    lo = GUARD + (-(buf.data_ptr() // 4 + GUARD)) % 4
+    out = buf[lo:lo + n].view(shape)
+    assert out.data_ptr() % 16 == 0
+    before = tre.LAUNCHES
+    tre._launch(x, *tre._pointer_table(x, out))
     torch.cuda.synchronize()
-    assert not out.any()
+    assert torch.equal(out, tre.ring_all_to_all_plain(x))
+    assert torch.equal(out, x.transpose(0, 1).contiguous())
+    assert (buf[:lo] == SENTINEL).all() and (buf[lo + n:] == SENTINEL).all()
+    assert torch.equal(tre.ring_all_to_all(x), out)
+    assert tre.LAUNCHES == before + 1
 
 
 @pytest.mark.parametrize("shape", [(8, 8, 1000, 4), (8, 8, 3, 3)])
 def test_launch_replays_in_a_cuda_graph(cuda, shape):
     """A launch captured in a CUDA graph and replayed on new input
-    equals the plain version on that input (both bodies)."""
+    equals the plain version on that input (aligned and odd blocks)."""
     static_in = _blocks(shape, 1, cuda)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -265,13 +266,15 @@ def test_launches_on_a_side_stream(cuda):
         assert torch.equal(out, want)
 
 
-@pytest.mark.parametrize("c,w,body", [(4, 1, "tma"), (3, 1, "ldst")])
-def test_most_shards(cuda, c, w, body):
+@pytest.mark.parametrize("c,w", [(4, 1), (3, 1)])
+def test_most_shards(cuda, c, w):
     """``MAX_SHARDS`` shards: the whole pointer table in use."""
     d = tre.MAX_SHARDS
     x = _blocks((d, d, c, w), c, cuda)
-    got, bodies = _bodies_launched(lambda: tre.ring_all_to_all(x))
-    assert bodies == {body: 1}
+    before = tre.LAUNCHES
+    got = tre.ring_all_to_all(x)
+    torch.cuda.synchronize()
+    assert tre.LAUNCHES == before + 1
     assert torch.equal(got, x.transpose(0, 1).contiguous())
 
 
@@ -590,18 +593,16 @@ def test_engine_job_on_card_rides_the_device_plane(cuda, tmp_path,
                                           ((4, 4, 7, 3), 1)])
 def test_range_launches_make_the_full_launch(cuda, shape, offset):
     """Two launches over half the sources each, into one output, equal the
-    full launch and the plain version: aligned (the TMA body) and at a
-    view 4 bytes into its storage with odd blocks (load/store)."""
+    full launch and the plain version: aligned, and at a view 4 bytes
+    into its storage with odd blocks."""
     d = shape[0]
     flat = _blocks((offset + int(np.prod(shape)),), d, cuda)
     x = flat[offset:].view(shape)
     out = torch.full_like(x, -1)
     src, dst = tre._pointer_table(x, out)
-    body = tre.body_for(src, dst, shape[2] * shape[3] * 4)
-    assert body == ("tma" if offset == 0 else "ldst")
     half = d // 2
-    tre._launch(x, out, body, src[:half], dst, src_begin=0)
-    tre._launch(x, out, body, src[half:], dst, src_begin=half)
+    tre._launch(x, src[:half], dst, src_begin=0)
+    tre._launch(x, src[half:], dst, src_begin=half)
     torch.cuda.synchronize()
     assert torch.equal(out, tre.ring_all_to_all(x))
     assert torch.equal(out, tre.ring_all_to_all_plain(x))
@@ -625,7 +626,7 @@ for shape in ((8, 8, 1000, 25), (8, 8, 7, 3)):
     got = tre.ring_all_to_all_peers(mine, mesh).clone()
     want = tre.ring_all_to_all_plain(glob)[pid * 4:(pid + 1) * 4]
     assert torch.equal(got, want), shape
-assert tre.LAUNCHES == 2 and set(tre.BODIES) == {"tma", "ldst"}, tre.BODIES
+assert tre.LAUNCHES == 2, tre.LAUNCHES
 multihost.shutdown_multihost()
 print("IPC_OK", pid, flush=True)
 '''

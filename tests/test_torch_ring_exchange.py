@@ -4,6 +4,11 @@ the 8-device CPU mesh, and against the swapaxes oracle. On the CPU the
 wrapper takes the plain version; the CUDA kernel itself is checked on
 the card (``test_torch_cuda.py`` and ``chip_smoke.py``)."""
 
+import collections
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -97,8 +102,6 @@ def test_pointer_table_layout():
     """Shard i's source base is ``i * D*C*W*4`` bytes into ``blocks`` and
     its destination base as far into ``out``; the block for shard j lies
     ``j * C*W*4`` bytes past the source base."""
-    import ctypes
-
     d, c, w = 3, 5, 7
     blocks = torch.arange(d * d * c * w, dtype=torch.int32).reshape(d, d, c, w)
     out = torch.empty_like(blocks)
@@ -125,8 +128,6 @@ def _range_launch(src, dst, src_begin, block):
     """What the kernel's range launch does with its bases: block (i, j)
     of source shard ``src_begin + i`` goes from ``src[i] + j*block`` to
     ``dst[j] + (src_begin + i)*block``."""
-    import ctypes
-
     for i, s in enumerate(src):
         for j, d in enumerate(dst):
             ctypes.memmove(d + (src_begin + i) * block, s + j * block, block)
@@ -170,43 +171,143 @@ def test_peer_pointer_table_refusals():
 def test_bases_struct_matches_the_kernel_source():
     """``_Bases`` mirrors ``struct Bases`` in the CUDA source: the same
     shard limit, 2 KB, by value in the 4 KB parameter block."""
-    import ctypes
-    import re
-    from pathlib import Path
-
-    src = (Path(tre.__file__).resolve().parents[1] / "csrc"
-           / "ring_exchange.cu").read_text()
-    limit = re.search(r"constexpr int kMaxShards = (\d+);", src)
-    assert limit and int(limit.group(1)) == tre.MAX_SHARDS
+    assert _cu_constant("kMaxShards") == tre.MAX_SHARDS
     assert ctypes.sizeof(tre._Bases) == 2 * 8 * tre.MAX_SHARDS <= 4096 - 64
 
 
-A = 1 << 20   # a 16-byte-aligned base address
+_CU = (Path(tre.__file__).resolve().parents[1] / "csrc"
+       / "ring_exchange.cu").read_text()
+_EXPORTED = dict(
+    (m.group(2), (m.group(1), m.group(3)))
+    for m in re.finditer(r'extern "C" ([\w ]+?\**) ?(\w+)\(([^)]*)\)', _CU))
+# each C type of the launchers' signatures and the ctypes that pass it
+# (a byte buffer passes a void pointer)
+_C_TYPES = {
+    "int": (ctypes.c_int,),
+    "long long": (ctypes.c_longlong,),
+    "void*": (ctypes.c_void_p, ctypes.c_char_p),
+    "const void*": (ctypes.c_void_p, ctypes.c_char_p),
+    "void**": (ctypes.POINTER(ctypes.c_void_p),),
+    "long long*": (ctypes.POINTER(ctypes.c_longlong),),
+    "const char*": (ctypes.c_char_p,),
+}
 
 
-@pytest.mark.parametrize("src,dst,block_bytes,body", [
-    ([A, A + 96], [A + 4096, A + 4192], 48, "tma"),
-    ([A], [A + 16], 16, "tma"),
-    ([A + 4, A + 100], [A + 4096, A + 4192], 48, "ldst"),   # source base
-    ([A, A + 96], [A + 4096, A + 4200], 48, "ldst"),        # one dest base
-    ([A, A + 40], [A + 4096, A + 4136], 20, "ldst"),        # block size
-    ([A, A + 8], [A + 4096, A + 4104], 8, "ldst"),
-])
-def test_body_choice_follows_alignment(src, dst, block_bytes, body):
-    assert tre.body_for(src, dst, block_bytes) == body
+def _c_type(decl: str) -> str:
+    """``"const void* bases"`` -> ``"const void*"``."""
+    return re.sub(r"\s+\*", "*", re.sub(r"\s*\w+$", "", decl.strip()))
 
 
-@pytest.mark.parametrize("offset,c,w,body", [
-    (0, 4, 4, "tma"), (0, 8, 2, "tma"), (0, 3, 3, "ldst"),
-    (1, 4, 4, "ldst"), (4, 4, 4, "tma")])
-def test_body_choice_for_tensor_views(offset, c, w, body):
-    """The choice for real tensors: a contiguous view ``offset`` words into
-    an aligned buffer, blocks of ``c * w`` words."""
-    d = 3
-    flat = torch.zeros(offset + d * d * c * w + 4, dtype=torch.int32)
-    pad = (-flat.data_ptr() // 4) % 4          # align the buffer's start
-    flat = flat[pad:] if pad else flat
-    x = flat[offset:offset + d * d * c * w].view(d, d, c, w)
-    src, dst = tre._pointer_table(x, torch.empty_like(x))
-    assert tre.body_for(src, dst, c * w * 4) == (
-        body if torch.empty_like(x).data_ptr() % 16 == 0 else "ldst")
+@pytest.mark.parametrize("name", sorted(_EXPORTED))
+def test_launch_argtypes_match_the_source(name):
+    """The module's ``SIGNATURES`` bind every exported function of the
+    CUDA source with its parameters' count and C types and its return
+    type: without ``nvcc`` here a mismatch would show only on the card,
+    as garbage arguments."""
+    assert len(_EXPORTED) == 10 and set(tre.SIGNATURES) == set(_EXPORTED)
+    ret, params = _EXPORTED[name]
+    decls = [p for p in params.split(",") if p.strip() and p.strip() != "void"]
+    argtypes, restype = tre.SIGNATURES[name]
+    assert len(argtypes) == len(decls), (name, decls)
+    for decl, ctype in zip(decls, argtypes):
+        assert ctype in _C_TYPES[_c_type(decl)], (name, decl, ctype)
+    assert restype in _C_TYPES[ret.replace(" *", "*")], (name, ret)
+
+
+def _cu_constant(name: str) -> int:
+    found = re.search(rf"constexpr int {name} = (\d+);", _CU)
+    assert found, name
+    return int(found.group(1))
+
+
+def _interior_of(src: int, dst: int, n: int):
+    """``interior_of`` in the CUDA source, on word addresses (a word
+    address is 16-byte aligned when it is a multiple of 4)."""
+    head, r, nvec = (4 - dst % 4) % 4, 0, 0
+    if head >= n:
+        return n, 0, 0
+    r = (src + head) % 4
+    if r > head:
+        head += 4
+    room = n - head - (4 - r if r else 0)
+    if head > n:
+        head = n
+    elif room >= 4:
+        nvec = room // 4
+    return head, nvec, r
+
+
+def _run_ldst_pair(mem: list, src: int, dst: int, n: int) -> dict:
+    """One pair of ``ring_ldst_kernel`` over the word memory ``mem``,
+    lane by lane as the CUDA source runs it: the grid of
+    ``launch_ldst``, tile 0's scalar words, ``copy_tile``'s vector loads,
+    warp shuffles and stores. Checks that every load and store lies
+    inside the pair's words (16-byte ones aligned); returns the number
+    of writes to each destination word and the head and tail."""
+    threads, unroll = _cu_constant("kLdstThreads"), _cu_constant("kLdstUnroll")
+    warps, tile_vecs = threads // 32, 32 * unroll
+    head, nvec, r = _interior_of(src, dst, n)
+    tiles = -(-(n // 4) // tile_vecs)
+    groups = -(-tiles // warps) if tiles else 1
+    writes = collections.Counter()
+
+    def load(a, words=1):
+        assert src <= a and a + words <= src + n, (a, words)
+        assert words == 1 or a % 4 == 0, a
+        return mem[a:a + words]
+
+    def store(a, vals):
+        assert dst <= a and a + len(vals) <= dst + n, (a, len(vals))
+        assert len(vals) == 1 or a % 4 == 0, a
+        mem[a:a + len(vals)] = vals
+        writes.update(range(a, a + len(vals)))
+
+    for tile in range(groups * warps):
+        words = [n] * 32
+        if tile == 0:
+            words = [lane if lane < head else head + 4 * nvec + lane - head
+                     for lane in range(32)]
+        scalars = [load(src + w) if w < n else None for w in words]
+        first = tile * tile_vecs
+        if first < nvec:
+            s4, d4 = src + head - r + 4 * first, dst + head + 4 * first
+            left = nvec - first
+            outs = min(left, tile_vecs)
+            loads = outs if r == 0 else min(left, tile_vecs) + 1
+            cur = [[load(s4 + 4 * (u * 32 + lane), 4)
+                    if u * 32 + lane < loads else [0] * 4
+                    for u in range(unroll)] for lane in range(32)]
+            ext = load(s4 + 4 * tile_vecs, 4) if r and tile_vecs < loads \
+                else [0] * 4
+            for u in range(unroll):
+                give = [(cur[0][u + 1] if u + 1 < unroll else ext)
+                        if lane == 0 else cur[lane][u] for lane in range(32)]
+                for lane in range(32):
+                    i = u * 32 + lane
+                    out = cur[lane][u][r:] + give[(lane + 1) % 32][:r]
+                    if i < outs:
+                        store(d4 + 4 * i, out)
+        for w, val in zip(words, scalars):
+            if w < n:
+                store(dst + w, val)
+    return {"writes": writes, "head": head, "tail": n - head - 4 * nvec}
+
+
+@pytest.mark.parametrize("src_off", range(4))
+@pytest.mark.parametrize("dst_off", range(4))
+def test_load_store_cut_covers_the_pair(src_off, dst_off):
+    """The load/store body's cut of one pair, emulated word by word from
+    the CUDA source's arithmetic for a source and a destination
+    ``src_off``/``dst_off`` words past a 16-byte boundary: every 16-byte
+    load and store lies inside the pair's bytes, every destination word
+    is written exactly once with its source word, and head and tail are
+    at most 15 words together."""
+    for n in (1, 3, 4, 7, 15, 16, 17, 100, 513, 2049):
+        src, dst = 64 + src_off, 64 + 4 * (n // 4 + 4) + dst_off
+        mem = [-1] * (dst + n + 64)
+        mem[src:src + n] = range(1000, 1000 + n)
+        got = _run_ldst_pair(mem, src, dst, n)
+        assert got["writes"] == collections.Counter(range(dst, dst + n)), n
+        assert mem[dst:dst + n] == list(range(1000, 1000 + n)), n
+        assert mem[:src] == [-1] * src and mem[dst + n:] == [-1] * 64, n
+        assert got["head"] + got["tail"] <= 15, (n, got["head"], got["tail"])
