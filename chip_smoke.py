@@ -21,12 +21,22 @@ printing one JSON line; any failure raises and the exit code is not 0:
    paths below launch (``MISALIGNED_SHAPES``) and at the tiny aligned
    ones (``SMALL_SHAPES``), each with its ratio to the library call
    (``vs_library``), on a line each (``kernel_misaligned``,
-   ``kernel_small``);
+   ``kernel_small``), and at the block shapes the paths launch it at
+   under ``impl="ring"`` (``PATH_RING_SHAPES``, line ``kernel_paths``);
+   then kernel_native: ``ragged_all_to_all`` (the ``native``
+   transport) against its plain version and the ``gather`` transport,
+   byte for byte, at the TeraSort path's shape (timed: ms, the byte
+   bound of the rows the counts move, ``gather_ms``, host µs per
+   launch), at row widths 1, 2, 3, 5 and 25 under random, skewed,
+   empty, flooding (truncated) and holed counts, and replayed in a
+   CUDA graph on new rows and counts;
 4. main path: TeraSort of 1 GiB of 100-byte rows over an 8-shard virtual
-   mesh with the ring transport (BASELINE.md config #1), counting kernel
-   launches, then ``verify_terasort``; repeated warm steps timed on the
-   host clock and one traced step (device time per layer span, top
-   kernels, idle share); a small run held bit for bit to
+   mesh with ``impl="auto"`` (the ragged kernel) and again with
+   ``impl="ring"`` (BASELINE.md config #1), counting each kernel's
+   launches, then ``verify_terasort``; repeated warm steps of both
+   timed on the host clock in turns and one traced step of each (device
+   time per layer span, top kernels, idle share); a small run held bit
+   for bit to
    ``numpy_terasort``; a streamed run of 3 rounds with a partial tail;
 5. streamed: ``run_terasort_streamed`` over the main path's 1 GiB of rows
    in 4 rounds (a quarter of its rows a shard, the tail padded),
@@ -36,15 +46,15 @@ printing one JSON line; any failure raises and the exit code is not 0:
    unpipelined and two rounds' + 10% pipelined;
 6. bench: ``python -m sparkrdma_tpu_torch.bench`` (secondaries skipped)
    as a process of its own, its JSON line checked (the headline metric,
-   ``platform`` ``cuda``, the ``ring`` transport, a ``vs_baseline``) and
+   ``platform`` ``cuda``, the ``native`` transport, a ``vs_baseline``) and
    printed; then the bench's four device secondaries (PageRank, the
    join, the TPC-DS star, ALS) in this process through its own builders,
    none recording an error;
-7. kernel_chunked: the kernel against its plain version at the ALS
+7. kernel_chunked: the ring kernel against its plain version at the ALS
    path's block shape, timed like phase 3;
 8. the workloads of BASELINE.md configs #3-#5, each through its entry
-   point with ``impl="auto"`` (the ring kernel on the card), its kernel
-   launches counted per block shape, the kernel held to its plain
+   point with ``impl="auto"`` (the ragged kernel on the card), its kernel
+   launches counted per shape, the kernel held to its plain
    version at every block shape the path gave it, its result held to its
    numpy oracle, then warm steps timed and one traced: ALS half-step over
    100M ratings, PageRank over 2**27 edges, the shuffle join, the TPC-DS
@@ -90,7 +100,7 @@ printing one JSON line; any failure raises and the exit code is not 0:
 13. small runs of every workload against their numpy oracles, and small
     engine jobs under the mesh engine: the star and q64 plans (4
     partitions, so a round's source shard sends to one or two
-    destinations and the ring's slots grow to the largest pair), the
+    destinations), the
     README's ``EngineContext`` word count and ``BatchRDD.sort_by_key``
     over 2**20 rows, each on the device plane with no degrade; and a
     skewed stage whose receive overflows and degrades to the host plane,
@@ -116,7 +126,7 @@ printing one JSON line; any failure raises and the exit code is not 0:
     processes started together, each exiting 0 and verified; ``demo``
     (TeraSort of 800,000 rows) and ``engine-mesh-demo`` (the TPC-DS star
     as an engine job on the device plane) in this process through
-    ``main([...])``, each launching the ring kernel, every block shape
+    ``main([...])``, each launching the ragged kernel, every shape
     held to the plain version; ``shuffle-service`` as a real process
     that adopts a stopped executor's spill directory (2 of 4 maps of
     2**18 100-byte records), a reducer reading all 16 partitions exactly
@@ -148,7 +158,10 @@ printing one JSON line; any failure raises and the exit code is not 0:
     lock sites and walls printed, the kernel's launches counted under
     ``analysis/lockgraph_engine`` and held to the plain version at every
     block shape;
-17. the kernel table line, then the device line last.
+17. the kernel table line (both kernels, each with the launches of the
+    paths that ran it: ``auto`` is the ragged kernel on one card and the
+    ring over the multihost phase's global mesh), then the device line
+    last.
 """
 
 from __future__ import annotations
@@ -206,7 +219,7 @@ from sparkrdma_tpu_torch.models.terasort import (
     run_terasort_streamed,
     verify_terasort,
 )
-from sparkrdma_tpu_torch.ops import _build, ring_exchange
+from sparkrdma_tpu_torch.ops import _build, ragged_exchange, ring_exchange
 from sparkrdma_tpu_torch.parallel.exchange import (
     bucket_quota,
     chunked_exchange,
@@ -272,7 +285,29 @@ SMALL_SHAPES = ((8, 8, 2, 2), (8, 8, 46, 2), (8, 8, 100, 2), (8, 8, 2, 4),
                 (8, 8, 46, 4), (8, 8, 100, 4), (8, 8, 256, 4),
                 (8, 8, 388, 4), (8, 8, 512, 4), (8, 8, 256, 3),
                 (8, 8, 4095, 4))
-KERNELS = ("ring_exchange",)
+# the ring block shapes the card's paths launch under impl="ring" besides
+# the lists above and the ALS shape (phase_kernel_chunked); held here
+# directly, since impl="auto" is the ragged kernel on the card
+PATH_RING_SHAPES = ((8, 8, 131072, 2), (8, 8, 262144, 2), (8, 8, 14746, 2),
+                    (8, 8, 524288, 2), (8, 8, 524288, 3), (8, 8, 8192, 3),
+                    (8, 8, 4194304, 2), (8, 8, 58982, 2),
+                    (8, 8, 2097152, 2), (8, 8, 337386, 8),
+                    (8, 8, 4095, 3), (8, 8, 4095, 5), (4, 4, 55924, 25),
+                    (8, 8, 65536, 25), (4, 4, 334494, 25),
+                    (4, 4, 336595, 25), (4, 4, 336682, 25), (8, 8, 819, 3),
+                    (8, 8, 25000, 5), (8, 8, 29, 3))
+KERNELS = ("ring_exchange",)  # csrc/ sources: both kernels are in one
+RING = "ring_all_to_all"
+NATIVE = "ragged_all_to_all"
+# each kernel's wrapper module, which holds its LAUNCHES and SHAPES
+COUNTERS = {RING: ring_exchange, NATIVE: ragged_exchange}
+# the kernel each counted path launched: set by _launches, and by the
+# phases whose paths run in processes of their own
+KERNEL_OF_PATH: dict = {}
+# the ragged kernel's sweep: rows a shard, row widths in words, counts
+NATIVE_CAP = 1 << 17
+NATIVE_WIDTHS = (1, 2, 3, 5, 25)
+NATIVE_COUNTS = ("random", "skewed", "empty", "flood", "holes")
 STEP_SAMPLES = 20             # untraced steps timed before the traced one
 WORKLOAD_SAMPLES = 5          # warm steps timed per workload phase
 
@@ -418,8 +453,11 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build(KERNELS)
+    # each kernel's "Function properties" line names it; its registers
+    # and spills follow
     ptxas = {name: [line for line in r["log"].splitlines()
-                    if "registers" in line or "spill" in line]
+                    if "registers" in line or "spill" in line
+                    or "Function properties" in line]
              for name, r in built.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_seconds": {k: r["seconds"] for k, r in built.items()},
@@ -547,6 +585,7 @@ def phase_kernel(cfg: TeraSortConfig) -> dict:
           "unaligned_ms": unaligned_ms})
     phase_kernel_shapes(row, "kernel_misaligned", MISALIGNED_SHAPES, 20)
     phase_kernel_shapes(row, "kernel_small", SMALL_SHAPES, 40)
+    phase_kernel_shapes(row, "kernel_paths", PATH_RING_SHAPES, 60)
     return row
 
 
@@ -568,6 +607,186 @@ def phase_kernel_shapes(row: dict, phase: str, shapes, seed: int) -> None:
         row["by_shape"].append(times)
         entries.append(times)
     emit({"phase": phase, "by_shape": entries})
+
+
+def _native_counts(kind: str, d: int, cap: int, seed: int,
+                   device="cuda") -> torch.Tensor:
+    """int32[d, d] counts on the card, each row summing to at most ``cap``:
+    ``full`` (every source sends all ``cap`` rows, spread evenly, as
+    TeraSort does), ``random``, ``skewed`` (90% to shard 0), ``empty``,
+    ``flood`` (every source's rows to one receiver, past any receive
+    capacity below ``d * cap``), ``holes`` (random with a zero row and a
+    zero column)."""
+    rng = np.random.default_rng(seed)
+    mat = np.zeros((d, d), np.int64)
+    if kind == "flood":
+        mat[:, d // 2] = cap
+    elif kind != "empty":
+        p = np.full(d, 1.0 / d)
+        if kind == "skewed" and d > 1:
+            p = np.full(d, 0.1 / (d - 1))
+            p[0] = 0.9
+        for i in range(d):
+            total = cap if kind == "full" else rng.integers(cap // 2, cap + 1)
+            mat[i] = rng.multinomial(total, p / p.sum())
+        if kind == "holes":
+            mat[d // 2] = 0
+            mat[:, -1] = 0
+    return torch.from_numpy(mat.astype(np.int32)).to(device)
+
+
+def _native_rows_moved(mat: np.ndarray, cap: int, out_cap: int) -> int:
+    """The rows the ragged kernel copies for ``mat``: each pair's count,
+    cut at its source's capacity and at its receiver's."""
+    d = mat.shape[0]
+    m = np.maximum(mat.astype(np.int64), 0)
+    start = np.cumsum(m, axis=1) - m
+    land = np.cumsum(m, axis=0) - m
+    rows = np.minimum(m, np.minimum(cap - start, out_cap - land))
+    return int(np.maximum(rows, 0).sum()) if d else 0
+
+
+def _check_native(data: torch.Tensor, mat: torch.Tensor,
+                  out_cap: int) -> int:
+    """The ragged kernel against its plain version and against the
+    ``gather`` transport on ``data`` and ``mat``: raises unless all three
+    are byte-equal and the kernel launched once; returns the max abs
+    error (0)."""
+    d, _, w = data.shape
+    out = torch.zeros((d, out_cap, w), dtype=torch.int32, device=data.device)
+    before = ragged_exchange.LAUNCHES
+    got = ragged_exchange.ragged_all_to_all(data, mat, out)
+    plain = ragged_exchange.ragged_all_to_all_plain(data, mat,
+                                                    torch.zeros_like(out))
+    gathered = exchange._gather_exchange(data, mat, torch.zeros_like(out))
+    torch.cuda.synchronize()
+    err = max(_max_abs_err(got, plain), _max_abs_err(got, gathered))
+    if not (torch.equal(got, plain) and torch.equal(got, gathered)):
+        raise AssertionError(f"ragged_all_to_all != plain or gather at "
+                             f"{tuple(data.shape)} -> {out_cap} rows")
+    if ragged_exchange.LAUNCHES != before + 1:
+        raise AssertionError("ragged_all_to_all did not launch the kernel")
+    return err
+
+
+def _native_times(data: torch.Tensor, mat: torch.Tensor,
+                  out_cap: int) -> dict:
+    """CUDA-event times of the ragged kernel, its plain version and the
+    ``gather`` transport (``gather_ms``: the nearest PyTorch computation
+    of the same function; no one library call computes it, so
+    ``library_ms`` is null), the host's time per launch, and the byte
+    bound of the rows these counts move (each read once and written
+    once). Inputs that fit in the L2 are timed rotating through copies."""
+    d, cap, w = data.shape
+    out = torch.zeros((d, out_cap, w), dtype=torch.int32, device=data.device)
+    fns = (lambda x, o: ragged_exchange.ragged_all_to_all(x, mat, o),
+           lambda x, o: ragged_exchange.ragged_all_to_all_plain(x, mat, o),
+           lambda x, o: exchange._gather_exchange(x, mat, o))
+    copies = 1
+    if data.nbytes + out.nbytes <= L2_BYTES:
+        copies = -(-COLD_BYTES // (data.nbytes + out.nbytes)) + 1
+    pairs = [(data, out)] + [(data.clone(), out.clone())
+                             for _ in range(copies - 1)]
+
+    def rotating(fn):
+        turn = itertools.count()
+        return lambda: fn(*pairs[next(turn) % copies])
+
+    ms, plain_ms, gather_ms = (cuda_ms(rotating(fn)) for fn in fns)
+    rows = _native_rows_moved(mat.cpu().numpy(), cap, out_cap)
+    moved = 2 * rows * w * 4
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    return {"shape": [d, cap, w, out_cap], "rows_moved": rows,
+            "bytes_moved": moved, "ms": ms, "plain_ms": plain_ms,
+            "gather_ms": gather_ms, "library_ms": None,
+            "bound_ms": bound_ms,
+            "roofline_share": bound_ms / ms if ms else None,
+            "vs_gather": gather_ms / ms,
+            "host_us_per_launch": _host_us_per_launch(
+                lambda: ragged_exchange.ragged_all_to_all(data, mat, out))}
+
+
+def _native_graph_check(d: int, cap: int, w: int) -> dict:
+    """One ``native`` exchange (``ragged_exchange_shard``) captured in a
+    CUDA graph and replayed on new rows and new counts, each replay
+    byte-equal to the ``gather`` transport on those inputs."""
+    data = _random_blocks((d, cap, w), 140)
+    mat = _native_counts("random", d, cap, 140)
+    out = torch.zeros((d, 2 * cap, w), dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm-up outside the capture
+        exchange.ragged_exchange_shard(data, mat, output=out.clone(),
+                                       impl="native")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.zero_()
+        got = exchange.ragged_exchange_shard(data, mat, output=out,
+                                             impl="native")
+    errs = []
+    for seed, kind in ((141, "skewed"), (142, "flood"), (143, "holes")):
+        data.copy_(_random_blocks((d, cap, w), seed))
+        mat.copy_(_native_counts(kind, d, cap, seed))
+        graph.replay()
+        want = exchange.ragged_exchange_shard(
+            data, mat, output=torch.zeros_like(out), impl="gather")
+        torch.cuda.synchronize()
+        for g, w_ in zip(got, want):
+            if not torch.equal(g, w_):
+                raise AssertionError(f"native graph replay ({kind}) != "
+                                     "gather")
+        errs.append(_max_abs_err(got[0], want[0]))
+    return {"shape": [d, cap, w, 2 * cap], "replays": len(errs),
+            "max_abs_err": max(errs)}
+
+
+def phase_kernel_native(cfg: TeraSortConfig) -> dict:
+    """The ragged all-to-all kernel against its plain version and the
+    ``gather`` transport, byte for byte: at the TeraSort path's shape
+    (``[D, rows_per_device, 1+P]`` into ``out_factor`` times the rows,
+    every source sending all its rows, evenly spread), timed; at every
+    width of ``NATIVE_WIDTHS`` and every count pattern of
+    ``NATIVE_COUNTS`` at ``NATIVE_CAP`` rows a shard, the receive
+    capacity at the send capacity (a flood truncates) and at twice it,
+    each width timed under random counts; and one ``native`` exchange
+    replayed in a CUDA graph. Returns the kernel's row."""
+    d, cap = SHARDS, cfg.rows_per_device
+    w, out_cap = 1 + cfg.payload_words, cfg.rows_per_device * cfg.out_factor
+    data = _random_blocks((d, cap, w), 100)
+    mat = _native_counts("full", d, cap, 100)
+    errs = {"terasort": _check_native(data, mat, out_cap)}
+    times = _native_times(data, mat, out_cap)
+    times.update(counts="full", max_abs_err=errs["terasort"])
+    del data
+    torch.cuda.empty_cache()
+    sweep = []
+    for i, width in enumerate(NATIVE_WIDTHS):
+        data = _random_blocks((d, NATIVE_CAP, width), 110 + i)
+        for kind in NATIVE_COUNTS:
+            mat = _native_counts(kind, d, NATIVE_CAP, 120 + i)
+            for oc in (NATIVE_CAP, 2 * NATIVE_CAP):
+                errs[f"w{width}/{kind}/{oc}"] = _check_native(data, mat, oc)
+        entry = _native_times(data, _native_counts("random", d, NATIVE_CAP,
+                                                   130 + i), 2 * NATIVE_CAP)
+        entry.update(counts="random", max_abs_err=max(
+            v for k, v in errs.items() if k.startswith(f"w{width}/")))
+        sweep.append(entry)
+        del data
+        torch.cuda.empty_cache()
+    graph = _native_graph_check(d, 1 << 16, w)
+    errs["cuda_graph"] = graph["max_abs_err"]
+    row = {"name": NATIVE, "route": "cuda",
+           "source": "sparkrdma_tpu_torch/csrc/ring_exchange.cu",
+           "replaces": "sparkrdma_tpu/parallel/exchange.py:178",
+           "launches": 0, "max_abs_err": max(errs.values()),
+           "ms": times["ms"], "plain_ms": times["plain_ms"],
+           "bound_ms": times["bound_ms"], "bound_by": "bytes",
+           "library_ms": None, "gather_ms": times["gather_ms"],
+           "by_shape": [times] + sweep}
+    emit({"phase": "kernel_native", **times, "max_abs_err_by_case": errs,
+          "sweep": sweep, "cuda_graph": graph})
+    return row
 
 
 def phase_kernel_chunked(row: dict) -> None:
@@ -640,41 +859,63 @@ def _timing(times_ms: list) -> dict:
 
 def phase_profile(mesh: VirtualMesh, cfg: TeraSortConfig,
                   rows: np.ndarray) -> None:
-    """``STEP_SAMPLES`` warm, untraced TeraSort steps timed on the host
-    clock, then one step under ``torch.profiler``: device time per layer
-    span (``fused.*``, ``exchange.*``), the top kernels, and the device's
-    idle share of the step's wall time."""
-    step = make_terasort_step(mesh, cfg, impl="ring")
+    """``STEP_SAMPLES`` warm, untraced TeraSort steps of each transport,
+    ``auto`` (the ragged kernel) and ``ring``, timed on the host clock in
+    turns (auto, ring, ring, auto, half the samples a turn), then one
+    step of each under ``torch.profiler``: device time per layer span
+    (``fused.*``, ``exchange.*``), the top kernels, and the device's idle
+    share of the step's wall time."""
+    steps = {impl: make_terasort_step(mesh, cfg, impl=impl)
+             for impl in ("auto", "ring")}
     rows_d = rows_from_numpy(rows, mesh)
-    samples = _host_times_ms(lambda: step(rows_d), STEP_SAMPLES)
-    emit({"phase": "step_times", **_timing(samples),
-          "median_gb_per_s": rows.nbytes / statistics.median(samples) / 1e6})
-    emit({"phase": "profile",
-          **_trace(lambda: step(rows_d), ("fused.", "exchange."))})
+    samples = {impl: [] for impl in steps}
+    for impl in ("auto", "ring", "ring", "auto"):
+        samples[impl] += _host_times_ms(lambda: steps[impl](rows_d),
+                                        STEP_SAMPLES // 2)
+    for impl, times in samples.items():
+        times.sort()
+        emit({"phase": "step_times", "impl": impl,
+              "resolved": exchange.resolve_transport(mesh, impl),
+              **_timing(times),
+              "median_gb_per_s": rows.nbytes / statistics.median(times)
+              / 1e6})
+    for impl, step in steps.items():
+        emit({"phase": "profile", "impl": impl,
+              **_trace(lambda: step(rows_d), ("fused.", "exchange."))})
 
 
-def phase_main_path(cfg: TeraSortConfig, row: dict) -> int:
+def phase_main_path(cfg: TeraSortConfig, table: dict) -> dict:
+    """TeraSort of 1 GiB through ``run_terasort``, with ``impl="auto"``
+    (the ragged kernel) and again with ``impl="ring"`` (the ring kernel),
+    each verified; then the steps timed and traced, a small run held to
+    ``numpy_terasort`` and a streamed run. Returns the launches per
+    path."""
     mesh = VirtualMesh(SHARDS)
     rows = generate_rows(cfg, SHARDS, seed=0)
-    torch.cuda.reset_peak_memory_stats()
-    (out, counts, dt), launches, shapes = _launches(
-        "terasort", lambda: run_terasort(mesh, cfg, impl="ring", rows=rows))
-    peak = torch.cuda.max_memory_allocated()
-    verify_terasort(out, counts, rows, SHARDS)
-    emit({"phase": "main_path", "shards": SHARDS,
-          "rows_per_device": cfg.rows_per_device,
-          "row_bytes": cfg.row_bytes, "data_bytes": int(rows.nbytes),
-          "step_s": dt, "gb_per_s": rows.nbytes / dt / 1e9,
-          "ring_launches": launches,
-          "ring_shapes": _check_path_shapes(row, "terasort", shapes),
-          "peak_device_bytes": peak, "verified": True})
-    del out
+    launches = {}
+    for path, impl, kernel in (("terasort", "auto", NATIVE),
+                               ("terasort/ring", "ring", RING)):
+        torch.cuda.reset_peak_memory_stats()
+        (out, counts, dt), launches[path], shapes = _launches(
+            path, lambda impl=impl: run_terasort(mesh, cfg, impl=impl,
+                                                 rows=rows), kernel)
+        peak = torch.cuda.max_memory_allocated()
+        verify_terasort(out, counts, rows, SHARDS)
+        emit({"phase": "main_path", "path": path, "impl": impl,
+              "kernel": kernel, "shards": SHARDS,
+              "rows_per_device": cfg.rows_per_device,
+              "row_bytes": cfg.row_bytes, "data_bytes": int(rows.nbytes),
+              "step_s": dt, "gb_per_s": rows.nbytes / dt / 1e9,
+              "kernel_launches": launches[path],
+              "kernel_shapes": _check_path_shapes(table, path, shapes),
+              "peak_device_bytes": peak, "verified": True})
+        del out
     phase_profile(mesh, cfg, rows)
     del rows
 
     small = TeraSortConfig(rows_per_device=4096)
     rows = generate_rows(small, SHARDS, seed=1)
-    out, counts, _ = run_terasort(mesh, small, impl="ring", rows=rows)
+    out, counts, _ = run_terasort(mesh, small, rows=rows)
     per = out.reshape(SHARDS, -1, out.shape[-1])
     got = np.concatenate([per[d][:int(counts[d].sum())]
                           for d in range(SHARDS)])
@@ -684,7 +925,7 @@ def phase_main_path(cfg: TeraSortConfig, row: dict) -> int:
     n_rows = int(2.5 * SHARDS * streamed.rows_per_device)
     rows = generate_rows(TeraSortConfig(rows_per_device=n_rows // SHARDS),
                          SHARDS, seed=2)[:n_rows - 13]
-    merged, rounds = run_terasort_streamed(mesh, streamed, rows, impl="ring")
+    merged, rounds = run_terasort_streamed(mesh, streamed, rows)
     if rounds != 3:
         raise AssertionError(f"expected 3 streamed rounds, ran {rounds}")
     np.testing.assert_array_equal(np.concatenate(merged),
@@ -720,7 +961,7 @@ def _verify_merged(merged: list, rows: np.ndarray) -> None:
     verify_terasort(padded.reshape(-1, width), counts, rows, SHARDS)
 
 
-def phase_streamed(cfg: TeraSortConfig, row: dict) -> dict:
+def phase_streamed(cfg: TeraSortConfig, table: dict) -> dict:
     """``run_terasort_streamed`` over the main path's 1 GiB of rows in
     ``STREAMED_ROUNDS`` rounds (a quarter of the main path's rows a
     shard, the last round padded), pipelined and with
@@ -766,8 +1007,8 @@ def phase_streamed(cfg: TeraSortConfig, row: dict) -> dict:
         runs[name] = {"wall_s": wall, "phase_times": times,
                       "peak_device_bytes": peak,
                       "peak_over_one_round": peak / one_round,
-                      "ring_launches": launches[path],
-                      "ring_shapes": _check_path_shapes(row, path, shapes)}
+                      "kernel_launches": launches[path],
+                      "kernel_shapes": _check_path_shapes(table, path, shapes)}
     for d in range(SHARDS):
         if not np.array_equal(outputs["pipelined"][d],
                               outputs["sequential"][d]):
@@ -791,7 +1032,7 @@ BENCH_SECONDARIES = (
 )
 
 
-def phase_bench(row: dict) -> dict:
+def phase_bench(table: dict) -> dict:
     """``python -m sparkrdma_tpu_torch.bench`` with the secondaries
     skipped, in a process of its own: its last line must parse and carry
     the headline metric, a value above 0, ``platform`` ``cuda``, the
@@ -820,7 +1061,7 @@ def phase_bench(row: dict) -> dict:
     detail = rec["detail"]
     if not (rec["metric"] == "terasort_shuffle_throughput_per_chip"
             and rec["value"] > 0 and detail["platform"] == "cuda"
-            and detail["exchange_impl"] == "ring"
+            and detail["exchange_impl"] == "native"
             and rec.get("vs_baseline")):
         raise AssertionError(f"bench line fails its checks: {lines[-1]}")
     print(lines[-1], flush=True)
@@ -845,47 +1086,77 @@ def phase_bench(row: dict) -> dict:
             prefix, lambda: bench._bench_secondary(
                 found, prefix, rate_key, lambda: build(mesh, SHARDS, True),
                 reps)))
-        shapes_by_path[path] = _check_path_shapes(row, path, shapes)
-    _, launches["bench/als"], shapes = _launches("bench/als", lambda: secondary(
-        "als", lambda: bench._bench_als(found, mesh, SHARDS, True)))
-    shapes_by_path["bench/als"] = _check_path_shapes(row, "bench/als", shapes)
+        shapes_by_path[path] = _check_path_shapes(table, path, shapes)
+    _, launches["bench/als"], shapes = _launches(
+        "bench/als", lambda: secondary(
+            "als", lambda: bench._bench_als(found, mesh, SHARDS, True)))
+    shapes_by_path["bench/als"] = _check_path_shapes(table, "bench/als",
+                                                     shapes)
     emit({"phase": "bench", "step": "secondaries", "detail": found,
-          "launches_by_path": launches, "ring_shapes": shapes_by_path})
+          "launches_by_path": launches, "kernel_shapes": shapes_by_path})
     return launches
 
 
-def _launches(path: str, fn):
-    """``fn()`` with the kernel's launch counts set to 0 just before it
-    and read just after; raises if the path never launched the kernel.
-    Returns ``(fn(), launches, launches per block shape)``."""
-    ring_exchange.LAUNCHES = 0
-    ring_exchange.SHAPES.clear()
+def _launches(path: str, fn, kernel: str = NATIVE):
+    """``fn()`` with both kernels' launch counts set to 0 just before it
+    and read just after; raises if the path never launched ``kernel``
+    (``impl="auto"`` on the card is the ragged kernel) or launched the
+    other one. Returns ``(fn(), launches, launches per shape)``."""
+    for mod in COUNTERS.values():
+        mod.LAUNCHES = 0
+        mod.SHAPES.clear()
     out = fn()
     torch.cuda.synchronize()
-    launches = ring_exchange.LAUNCHES
-    if launches == 0:
-        raise AssertionError(f"the {path} path never launched "
-                             "ring_all_to_all")
-    return out, launches, dict(ring_exchange.SHAPES)
+    launched = {name: mod.LAUNCHES for name, mod in COUNTERS.items()}
+    if launched[kernel] == 0:
+        raise AssertionError(f"the {path} path never launched {kernel}")
+    if any(n for name, n in launched.items() if name != kernel):
+        raise AssertionError(f"the {path} path launched {launched}, not "
+                             f"{kernel} alone")
+    KERNEL_OF_PATH[path] = kernel
+    return out, launched[kernel], dict(COUNTERS[kernel].SHAPES)
 
 
-def _check_path_shapes(row: dict, path: str, shapes: dict) -> list:
-    """The kernel against its plain version, bit for bit on random blocks,
-    at every block shape the ``path`` run gave it; a shape not met before
-    is timed like ``phase_kernel`` and joins the kernel row's
+def _ring_entry(shape, seed: int) -> dict:
+    """The ring kernel checked and timed at a block shape."""
+    blocks = _random_blocks(shape, seed)
+    err = _check_kernel(blocks)
+    entry = _kernel_times(blocks)
+    del blocks
+    torch.cuda.empty_cache()
+    entry["max_abs_err"] = err
+    return entry
+
+
+def _native_entry(shape, seed: int) -> dict:
+    """The ragged kernel checked and timed at ``(D, cap, W, out_cap)``
+    under random counts."""
+    d, cap, w, out_cap = shape
+    data = _random_blocks((d, cap, w), seed)
+    mat = _native_counts("random", d, cap, seed)
+    err = _check_native(data, mat, out_cap)
+    entry = _native_times(data, mat, out_cap)
+    del data
+    torch.cuda.empty_cache()
+    entry.update(counts="random", max_abs_err=err)
+    return entry
+
+
+def _check_path_shapes(table: dict, path: str, shapes: dict) -> list:
+    """The kernel the ``path`` run launched against its plain version, bit
+    for bit on random inputs, at every shape the run gave it; a shape not
+    met before is timed like that kernel's phase and joins its row's
     ``by_shape``, and each shape's entry records the path's launches at
     it. Returns ``[[shape, launches], ...]``."""
+    kernel = KERNEL_OF_PATH[path]
+    row = table[kernel]
     by_shape = {tuple(e["shape"]): e for e in row["by_shape"]}
     for shape, count in sorted(shapes.items()):
         entry = by_shape.get(shape)
         if entry is None:
-            blocks = _random_blocks(shape, 10 + len(by_shape))
-            err = _check_kernel(blocks)
-            entry = _kernel_times(blocks)
-            del blocks
-            torch.cuda.empty_cache()
-            entry["max_abs_err"] = err
-            row["max_abs_err"] = max(row["max_abs_err"], err)
+            check = _ring_entry if kernel == RING else _native_entry
+            entry = check(shape, 10 + len(by_shape))
+            row["max_abs_err"] = max(row["max_abs_err"], entry["max_abs_err"])
             row["by_shape"].append(entry)
             by_shape[shape] = entry
         entry.setdefault("launches_by_path", {})[path] = count
@@ -902,7 +1173,7 @@ def _stable_grouping(rows: np.ndarray, dest: np.ndarray, n: int) -> list:
         for d in range(n)]
 
 
-def phase_als(mesh: VirtualMesh, row: dict) -> int:
+def phase_als(mesh: VirtualMesh, table: dict) -> int:
     """ALS half-step (items from users) over 100M zipf-skewed ratings
     through the chunked exchange; the received rows held exactly to a
     numpy grouping, 32 sampled items' factors (the hottest included) to
@@ -923,7 +1194,7 @@ def phase_als(mesh: VirtualMesh, row: dict) -> int:
         "chunked/als", lambda: half_step(ratings))
     first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    ring_shapes = _check_path_shapes(row, "chunked/als", shapes)
+    kernel_shapes = _check_path_shapes(table, "chunked/als", shapes)
     warm_ms = _host_times_ms(lambda: half_step(ratings), 2)
 
     # the exchange, held to a stable numpy grouping by item owner
@@ -953,8 +1224,8 @@ def phase_als(mesh: VirtualMesh, row: dict) -> int:
           "per_device": ALS_PER_DEVICE, "num_users": ALS_CFG.num_users,
           "num_items": ALS_CFG.num_items, "rank": ALS_CFG.rank,
           "quota": ALS_QUOTA, "bucketed_quota": bucket_quota(ALS_QUOTA),
-          "rounds": rounds, "ring_launches": launches,
-          "ring_shapes": ring_shapes, "recv_totals": recv_totals,
+          "rounds": rounds, "kernel_launches": launches,
+          "kernel_shapes": kernel_shapes, "recv_totals": recv_totals,
           "hot_item_ratings": int(per_item[0]),
           "first_call_s": first_s, "warm_ms": warm_ms,
           "als_ratings_per_s": len(ratings) / statistics.median(warm_ms)
@@ -973,7 +1244,7 @@ def phase_als(mesh: VirtualMesh, row: dict) -> int:
     return launches
 
 
-def phase_pagerank(mesh: VirtualMesh, row: dict) -> int:
+def phase_pagerank(mesh: VirtualMesh, table: dict) -> int:
     """``run_pagerank`` for 5 iterations over 2**27 edges, held to the
     float64 oracle; warm iterations timed, one traced."""
     cfg = PAGERANK_CFG
@@ -987,7 +1258,7 @@ def phase_pagerank(mesh: VirtualMesh, row: dict) -> int:
             mesh, cfg, PAGERANK_ITERATIONS, graph=graph))
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    ring_shapes = _check_path_shapes(row, "pagerank", shapes)
+    kernel_shapes = _check_path_shapes(table, "pagerank", shapes)
     edges, ranks0, out_deg = graph
     t0 = time.perf_counter()
     want = pagerank.numpy_pagerank(edges, cfg.num_vertices, cfg.damping,
@@ -1004,7 +1275,7 @@ def phase_pagerank(mesh: VirtualMesh, row: dict) -> int:
     n_edges = len(edges)
     emit({"phase": "pagerank", "num_vertices": cfg.num_vertices,
           "edges": n_edges, "iterations": PAGERANK_ITERATIONS,
-          "ring_launches": launches, "ring_shapes": ring_shapes,
+          "kernel_launches": launches, "kernel_shapes": kernel_shapes,
           "run_s": run_s,
           "step_times": _timing(times),
           "s_per_iteration": statistics.median(times) / 1e3,
@@ -1016,7 +1287,7 @@ def phase_pagerank(mesh: VirtualMesh, row: dict) -> int:
     return launches
 
 
-def phase_join(mesh: VirtualMesh, row: dict) -> int:
+def phase_join(mesh: VirtualMesh, table: dict) -> int:
     """``run_join`` at bench.py's row count, held exactly to the oracle;
     warm steps timed, one traced."""
     cfg = JOIN_CFG
@@ -1025,7 +1296,7 @@ def phase_join(mesh: VirtualMesh, row: dict) -> int:
     (matches, pair_sum), launches, shapes = _launches(
         "join", lambda: join.run_join(mesh, cfg, tables=tables))
     peak = torch.cuda.max_memory_allocated()
-    ring_shapes = _check_path_shapes(row, "join", shapes)
+    kernel_shapes = _check_path_shapes(table, "join", shapes)
     want = join.numpy_join(*tables)
     if (matches, pair_sum) != want:
         raise AssertionError(f"join {(matches, pair_sum)} != oracle {want}")
@@ -1038,7 +1309,7 @@ def phase_join(mesh: VirtualMesh, row: dict) -> int:
     emit({"phase": "join", "rows": rows, "key_space": cfg.key_space,
           "matches": matches, "pair_sum": pair_sum, "exact": True,
           "max_shard_pair_sum": int(shard_sums.max().item()),
-          "ring_launches": launches, "ring_shapes": ring_shapes,
+          "kernel_launches": launches, "kernel_shapes": kernel_shapes,
           "step_times": _timing(times),
           "join_rows_per_s": rows / statistics.median(times) * 1e3,
           "overflowed": overflowed.cpu().tolist(),
@@ -1047,7 +1318,7 @@ def phase_join(mesh: VirtualMesh, row: dict) -> int:
     return launches
 
 
-def phase_tpcds(mesh: VirtualMesh, row: dict) -> int:
+def phase_tpcds(mesh: VirtualMesh, table: dict) -> int:
     """``run_tpcds`` at SF10 scale, held exactly to the oracle; warm
     steps timed, one traced."""
     cfg = TPCDS_CFG
@@ -1058,7 +1329,7 @@ def phase_tpcds(mesh: VirtualMesh, row: dict) -> int:
     (counts, sums), launches, shapes = _launches(
         "tpcds", lambda: tpcds.run_tpcds(mesh, cfg, star=star))
     peak = torch.cuda.max_memory_allocated()
-    ring_shapes = _check_path_shapes(row, "tpcds", shapes)
+    kernel_shapes = _check_path_shapes(table, "tpcds", shapes)
     want_c, want_s = tpcds.numpy_tpcds(*star, cfg.num_groups)
     np.testing.assert_array_equal(counts, want_c)
     np.testing.assert_array_equal(sums, want_s)
@@ -1075,7 +1346,7 @@ def phase_tpcds(mesh: VirtualMesh, row: dict) -> int:
           "dim_rows": [len(dim1), len(dim2)], "groups": cfg.num_groups,
           "joined_rows": int(counts.sum()), "exact": True,
           "hot_key_share": float(hot / len(fact)),
-          "ring_launches": launches, "ring_shapes": ring_shapes,
+          "kernel_launches": launches, "kernel_shapes": kernel_shapes,
           "step_times": _timing(times),
           "tpcds_fact_rows_per_s": len(fact) / statistics.median(times)
           * 1e3,
@@ -1097,7 +1368,7 @@ def _owner(keys: np.ndarray) -> np.ndarray:
     return tpcds_queries._np_owner(keys, SHARDS)
 
 
-def _query_phase(name: str, mesh: VirtualMesh, row: dict, cfg, tables,
+def _query_phase(name: str, mesh: VirtualMesh, table: dict, cfg, tables,
                  run, make_step, by_shard, spans) -> dict:
     """One TPC-DS plan through its runner (kernel launches counted per
     block shape, the kernel held to its plain version at each), its totals
@@ -1109,7 +1380,7 @@ def _query_phase(name: str, mesh: VirtualMesh, row: dict, cfg, tables,
         name, lambda: run(mesh, cfg, tables=tables))
     first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    ring_shapes = _check_path_shapes(row, name, shapes)
+    kernel_shapes = _check_path_shapes(table, name, shapes)
     t0 = time.perf_counter()
     want_by_shard = by_shard(*tables, cfg, SHARDS)
     oracle_s = time.perf_counter() - t0
@@ -1133,13 +1404,13 @@ def _query_phase(name: str, mesh: VirtualMesh, row: dict, cfg, tables,
             "tables_crc32": [zlib.crc32(t.tobytes()) for t in tables],
             "per_shard_exact": True,
             "partials": partial.cpu().numpy().tolist(),
-            "ring_launches": launches, "ring_shapes": ring_shapes,
+            "kernel_launches": launches, "kernel_shapes": kernel_shapes,
             "first_call_s": first_s, "step_times": _timing(times),
             "peak_device_bytes": peak, "oracle_s": oracle_s,
             "overflowed": overflowed.cpu().tolist()}
 
 
-def phase_q95(mesh: VirtualMesh, row: dict) -> int:
+def phase_q95(mesh: VirtualMesh, table: dict) -> int:
     """TPC-DS q95 over SF10's web_sales row count, exact against the
     oracle in total and per shard; warm steps timed, one traced."""
     cfg = Q95_CFG
@@ -1147,7 +1418,7 @@ def phase_q95(mesh: VirtualMesh, row: dict) -> int:
     tables = tpcds_queries.generate_q95(cfg, SHARDS, seed=0)
     generate_s = time.perf_counter() - t0
     ws = tables[0]
-    record = _query_phase("q95", mesh, row, cfg, tables,
+    record = _query_phase("q95", mesh, table, cfg, tables,
                           tpcds_queries.run_q95, tpcds_queries.make_q95_step,
                           tpcds_queries.numpy_q95_by_shard,
                           ("q95.",))
@@ -1167,10 +1438,10 @@ def phase_q95(mesh: VirtualMesh, row: dict) -> int:
         "ws_rows_per_s": len(ws) / record["step_times"]["median_ms"] * 1e3,
         "generate_s": generate_s})
     emit(record)
-    return record["ring_launches"]
+    return record["kernel_launches"]
 
 
-def phase_q64(mesh: VirtualMesh, row: dict) -> int:
+def phase_q64(mesh: VirtualMesh, table: dict) -> int:
     """TPC-DS q64 at the largest size its 16-bit keys admit, exact against
     the oracle in total and per shard; warm steps timed, one traced."""
     cfg = Q64_CFG
@@ -1178,7 +1449,7 @@ def phase_q64(mesh: VirtualMesh, row: dict) -> int:
     tables = tpcds_queries.generate_q64(cfg, SHARDS, seed=0)
     generate_s = time.perf_counter() - t0
     ss, _, cs, _, _ = tables
-    record = _query_phase("q64", mesh, row, cfg, tables,
+    record = _query_phase("q64", mesh, table, cfg, tables,
                           tpcds_queries.run_q64, tpcds_queries.make_q64_step,
                           tpcds_queries.numpy_q64_by_shard,
                           ("q64.",))
@@ -1200,7 +1471,7 @@ def phase_q64(mesh: VirtualMesh, row: dict) -> int:
         / record["step_times"]["median_ms"] * 1e3,
         "generate_s": generate_s})
     emit(record)
-    return record["ring_launches"]
+    return record["kernel_launches"]
 
 
 def _round_host_ms(tracer: Tracer) -> dict:
@@ -1230,7 +1501,7 @@ def _fused_rows():
     return rows, keys, (keys % SHARDS).astype(np.int32)
 
 
-def phase_fused_rounds(mesh: VirtualMesh, row: dict):
+def phase_fused_rounds(mesh: VirtualMesh, table: dict):
     """``run_fused_exchange`` over 1 GiB in budget-sized rounds, pipelined
     and sequential, each shard held to a numpy stable sort of its rows by
     u64 key; one more run traced. Returns (launches, rows, dest, result)
@@ -1249,7 +1520,7 @@ def phase_fused_rounds(mesh: VirtualMesh, row: dict):
         lambda: run_fused_exchange(mesh, rows, dest, tracer=tracer, **kw))
     wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    ring_shapes = _check_path_shapes(row, "fused_rounds", shapes)
+    kernel_shapes = _check_path_shapes(table, "fused_rounds", shapes)
     seq_tracer = Tracer()
     t0 = time.perf_counter()
     seq, seq_rounds = run_fused_exchange(mesh, rows, dest,
@@ -1286,13 +1557,13 @@ def phase_fused_rounds(mesh: VirtualMesh, row: dict):
           "sequential_gb_per_s": rows.nbytes / seq_s / 1e9,
           "host_ms": _round_host_ms(tracer),
           "sequential_host_ms": _round_host_ms(seq_tracer),
-          "ring_launches": launches, "ring_shapes": ring_shapes,
+          "kernel_launches": launches, "kernel_shapes": kernel_shapes,
           "peak_device_bytes": peak, "pipelined_equals_sequential": True,
           "exact": True, "generate_s": generate_s, "oracle_s": oracle_s})
     return launches, rows, dest, piped
 
 
-def phase_hierarchical(mesh: VirtualMesh, row: dict, rows: np.ndarray,
+def phase_hierarchical(mesh: VirtualMesh, table: dict, rows: np.ndarray,
                        dest: np.ndarray, flat: list) -> int:
     """The same rows through ``run_hierarchical_exchange`` on two slices
     of 4 shards, each row homed in its source shard's slice, with the
@@ -1313,7 +1584,7 @@ def phase_hierarchical(mesh: VirtualMesh, row: dict, rows: np.ndarray,
     wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     after = topology.cross_slice_snapshot()
-    ring_shapes = _check_path_shapes(row, "hierarchical", shapes)
+    kernel_shapes = _check_path_shapes(table, "hierarchical", shapes)
     for d in range(SHARDS):
         np.testing.assert_array_equal(hier[d], flat[d],
                                       err_msg=f"hierarchical, shard {d}")
@@ -1339,7 +1610,7 @@ def phase_hierarchical(mesh: VirtualMesh, row: dict, rows: np.ndarray,
           "cross_slice_bytes": moved, "residue_rows": residue,
           "wall_s": wall_s, "gb_per_s": rows.nbytes / wall_s / 1e9,
           "host_ms": _round_host_ms(tracer),
-          "ring_launches": launches, "ring_shapes": ring_shapes,
+          "kernel_launches": launches, "kernel_shapes": kernel_shapes,
           "peak_device_bytes": peak, "equals_flat": True})
     return launches
 
@@ -1444,7 +1715,7 @@ def _mesh_host_ms(tracer: Tracer, wall_s: float) -> dict:
                              for k in ("staging", "dispatch", "collect")}}
 
 
-def _mesh_run(name: str, row: dict, launches: dict, fn) -> tuple:
+def _mesh_run(name: str, table: dict, launches: dict, fn) -> tuple:
     """One reduce of the stage, its kernel launches counted and the
     kernel held to its plain version at every block shape it was given.
     Returns (result, record)."""
@@ -1455,13 +1726,13 @@ def _mesh_run(name: str, row: dict, launches: dict, fn) -> tuple:
     wall_s = time.perf_counter() - t0
     record = {"wall_s": wall_s,
               "gb_per_s": MS_ROWS * (8 + MS_PAYLOAD) / wall_s / 1e9,
-              "ring_launches": launches[path],
+              "kernel_launches": launches[path],
               "peak_device_bytes": torch.cuda.max_memory_allocated(),
-              "ring_shapes": _check_path_shapes(row, path, shapes)}
+              "kernel_shapes": _check_path_shapes(table, path, shapes)}
     return result, record
 
 
-def phase_mesh_service(mesh: VirtualMesh, row: dict, keys: np.ndarray,
+def phase_mesh_service(mesh: VirtualMesh, table: dict, keys: np.ndarray,
                        payload: np.ndarray, generate_s: float) -> tuple:
     """The mesh shuffle service over one engine shuffle stage (see the
     module docstring, phase 11): ``keys`` and ``payload`` written by
@@ -1470,11 +1741,11 @@ def phase_mesh_service(mesh: VirtualMesh, row: dict, keys: np.ndarray,
     with _engine_cluster(MS_EXECUTORS) as (driver, execs):
         executors, handle, commit_s = _mesh_stage(driver, execs, keys,
                                                   payload)
-        return _mesh_service_runs(mesh, row, executors, handle, keys,
+        return _mesh_service_runs(mesh, table, executors, handle, keys,
                                   payload, generate_s, commit_s)
 
 
-def _mesh_service_runs(mesh: VirtualMesh, row: dict, executors, handle,
+def _mesh_service_runs(mesh: VirtualMesh, table: dict, executors, handle,
                        keys: np.ndarray, payload: np.ndarray,
                        generate_s: float, commit_s: float) -> tuple:
     """``phase_mesh_service``'s runs over the committed stage."""
@@ -1492,7 +1763,7 @@ def _mesh_service_runs(mesh: VirtualMesh, row: dict, executors, handle,
     # 1. the headline: the fused driver in budget-sized rounds
     tracer = Tracer()
     fused, runs["fused_rounds"] = _mesh_run(
-        "fused_rounds", row, launches,
+        "fused_rounds", table, launches,
         lambda: mesh_service.run_mesh_reduce_fused(
             executors, handle, mesh, rows_per_round=MS_ROWS_PER_ROUND,
             tracer=tracer, **kw))
@@ -1515,7 +1786,7 @@ def _mesh_service_runs(mesh: VirtualMesh, row: dict, executors, handle,
             ("streamed_sequential",
              lambda: mesh_service.run_mesh_reduce_streamed(
                  executors, handle, mesh, pipeline_rounds=False, **kw))):
-        result, runs[name] = _mesh_run(name, row, launches, fn)
+        result, runs[name] = _mesh_run(name, table, launches, fn)
         _same_rows(name, result, want)
         del result
 
@@ -1524,7 +1795,7 @@ def _mesh_service_runs(mesh: VirtualMesh, row: dict, executors, handle,
     before = topology.cross_slice_snapshot()
     hier_tracer = Tracer()
     hier, runs["hier"] = _mesh_run(
-        "hier", row, launches, lambda: mesh_service.run_mesh_reduce_hier(
+        "hier", table, launches, lambda: mesh_service.run_mesh_reduce_hier(
             executors, handle, mesh, HIER_TOPOLOGY, tracer=hier_tracer,
             **kw))
     after = topology.cross_slice_snapshot()
@@ -1677,7 +1948,7 @@ def _engine_stage(keys: np.ndarray, payload: np.ndarray, reads: list,
     return ResultStage(MS_PARTITIONS, reduce_fn, parents=[stage])
 
 
-def phase_engine(mesh: VirtualMesh, row: dict, keys: np.ndarray,
+def phase_engine(mesh: VirtualMesh, table: dict, keys: np.ndarray,
                  payload: np.ndarray, want: list) -> dict:
     """The mesh-service stage as a real engine job (see the module
     docstring, phase 12). Returns the kernel's launches per path."""
@@ -1754,14 +2025,14 @@ def phase_engine(mesh: VirtualMesh, row: dict, keys: np.ndarray,
           "result_stage_s": stages.get("result"), "reduce_s": reduce_s,
           "reduce_gb_per_s": staged / reduce_s / 1e9, "job_s": job_s,
           "job_gb_per_s": staged / job_s / 1e9, "host_ms": host_ms,
-          "ring_launches": launches["engine"],
-          "ring_shapes": _check_path_shapes(row, "engine", shapes),
+          "kernel_launches": launches["engine"],
+          "kernel_shapes": _check_path_shapes(table, "engine", shapes),
           "remote_bytes": 0, "all_exact": True})
     emit({"phase": "engine_profile", **traced})
     return launches
 
 
-def phase_engine_q95(mesh: VirtualMesh, row: dict) -> dict:
+def phase_engine_q95(mesh: VirtualMesh, table: dict) -> dict:
     """TPC-DS q95 as an engine job (``build_q95_job``: five sources, three
     dimension joins, the by-order result stage) over SF10's web_sales
     rows through the mesh engine, against ``numpy_q95``."""
@@ -1795,8 +2066,8 @@ def phase_engine_q95(mesh: VirtualMesh, row: dict) -> dict:
           "plane_counts": dict(collections.Counter(chosen["planes"])),
           "degrades": chosen["degrades"], "rounds": chosen["rounds"],
           "slot_rows": chosen["slot_rows"],
-          "ring_launches": launches["engine_q95"],
-          "ring_shapes": _check_path_shapes(row, "engine_q95", shapes)})
+          "kernel_launches": launches["engine_q95"],
+          "kernel_shapes": _check_path_shapes(table, "engine_q95", shapes)})
     return launches
 
 
@@ -2070,7 +2341,7 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
     t0 = time.perf_counter()
     (ts_out, ts_counts), launches, shapes = _launches(
         "multihost/terasort", lambda: multihost.run_multihost_terasort(
-            mesh, "shuffle", rpd, payload_words=24, seed=0))
+            mesh, "shuffle", rpd, payload_words=24, seed=0), RING)
     wall = time.perf_counter() - t0
     per = ts_out.reshape(dl, -1, ts_out.shape[-1])
     digests, rows = [], 0
@@ -2083,8 +2354,8 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
         rows += total
     del ts_out, per
     report["terasort"] = {"wall_s": wall, "rows": rows, "digests": digests,
-                          "ring_launches": launches,
-                          "ring_shapes": [[list(k), v]
+                          "kernel_launches": launches,
+                          "kernel_shapes": [[list(k), v]
                                           for k, v in shapes.items()]}
     shapes_seen.update(shapes)
 
@@ -2135,12 +2406,12 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
                 f"multihost/mesh_{name}",
                 lambda kw=kw: multihost.run_multihost_mesh_reduce(
                     [ex.native], handle, mesh, out_factor=MS_OUT_FACTOR,
-                    **kw))
+                    **kw), RING)
             wall = time.perf_counter() - t0
             after = topology.cross_slice_snapshot()
             runs[name] = {
-                "wall_s": wall, "ring_launches": launches,
-                "ring_shapes": [[list(k), v] for k, v in shapes.items()],
+                "wall_s": wall, "kernel_launches": launches,
+                "kernel_shapes": [[list(k), v] for k, v in shapes.items()],
                 "rows": int(sum(len(k) for k, _, _ in result)),
                 "cross_slice_bytes": after["bytes"] - before["bytes"],
                 "partition_digests": _partition_digests(result)}
@@ -2184,7 +2455,7 @@ def _terasort_reference(cfg: TeraSortConfig) -> list:
     return [_digest(out[d][:int(counts[d].sum())]) for d in range(SHARDS)]
 
 
-def phase_multihost(row: dict, cfg: TeraSortConfig,
+def phase_multihost(table: dict, cfg: TeraSortConfig,
                     want_partitions: dict) -> dict:
     """The multi-process path (module docstring, phase 14). Returns the
     kernel's launches per path."""
@@ -2249,7 +2520,7 @@ def phase_multihost(row: dict, cfg: TeraSortConfig,
         if any(r["mesh"]["runs"][name]["cross_slice_bytes"] <= 0
                for r in reports):
             raise AssertionError("no cross-slice bytes counted")
-    rounds = min(r["mesh"]["runs"]["rounds"]["ring_launches"]
+    rounds = min(r["mesh"]["runs"]["rounds"]["kernel_launches"]
                  for r in reports)
     if rounds < 2:
         raise AssertionError(f"the rounds reduce ran {rounds} round(s)")
@@ -2264,12 +2535,13 @@ def phase_multihost(row: dict, cfg: TeraSortConfig,
              "multihost/mesh_rounds": lambda r: r["mesh"]["runs"]["rounds"]}
     by_shape = collections.defaultdict(dict)
     for path, pick in paths.items():
-        launches[path] = sum(pick(r)["ring_launches"] for r in reports)
+        KERNEL_OF_PATH[path] = RING      # auto over a GlobalMesh
+        launches[path] = sum(pick(r)["kernel_launches"] for r in reports)
         if launches[path] == 0:
             raise AssertionError(f"the {path} path never launched the "
                                  "kernel")
         for r in reports:
-            for shape, n in pick(r)["ring_shapes"]:
+            for shape, n in pick(r)["kernel_shapes"]:
                 entry = by_shape[tuple(shape)]
                 entry[path] = entry.get(path, 0) + n
     checks = {}
@@ -2280,8 +2552,9 @@ def phase_multihost(row: dict, cfg: TeraSortConfig,
         raise AssertionError("a cross-process shape went unchecked")
     for shape, per_proc in sorted(checks.items()):
         err = max(c["max_abs_err"] for c in per_proc)
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["by_shape"].append({
+        ring = table[RING]
+        ring["max_abs_err"] = max(ring["max_abs_err"], err)
+        ring["by_shape"].append({
             "shape": list(shape), "processes": MH_PROCESSES,
             "shared_card": True,
             "bytes_moved": per_proc[0]["bytes_moved"],
@@ -2508,7 +2781,7 @@ def _shuffle_service_step() -> dict:
             "exact": True, "sigterm_exit": rc}
 
 
-def _bench_run(row: dict, path: str, fn) -> tuple:
+def _bench_run(table: dict, path: str, fn) -> tuple:
     """One bench run wrapped by ``_launches``: its result, the run's wall
     time (set-up and warm-up included), launches and ring shapes (each
     checked against the plain version)."""
@@ -2517,11 +2790,11 @@ def _bench_run(row: dict, path: str, fn) -> tuple:
     run_s = time.perf_counter() - t0
     if not res["identical"]:
         raise AssertionError(f"{path}: the two dataplanes disagree: {res}")
-    return res, {"run_s": run_s, "ring_launches": launches,
-                 "ring_shapes": _check_path_shapes(row, path, shapes)}
+    return res, {"run_s": run_s, "kernel_launches": launches,
+                 "kernel_shapes": _check_path_shapes(table, path, shapes)}
 
 
-def phase_cli_and_benches(row: dict) -> dict:
+def phase_cli_and_benches(table: dict) -> dict:
     """The CLI and the device benches (module docstring, phase 15).
     Returns the kernel's launches per path."""
     t_phase = time.perf_counter()
@@ -2538,8 +2811,8 @@ def phase_cli_and_benches(row: dict) -> dict:
             raise AssertionError(f"{argv} did not verify: {record}")
         emit({"phase": "cli_and_benches", "step": path, **record,
               "wall_s": time.perf_counter() - t0,
-              "ring_launches": launches[path],
-              "ring_shapes": _check_path_shapes(row, path, shapes)})
+              "kernel_launches": launches[path],
+              "kernel_shapes": _check_path_shapes(table, path, shapes)})
 
     emit({"phase": "cli_and_benches", "step": "shuffle_service",
           **_shuffle_service_step()})
@@ -2548,15 +2821,15 @@ def phase_cli_and_benches(row: dict) -> dict:
         for path, kw in (("device_bench/default", {}),
                          ("device_bench/stage", DB_STAGE)):
             spill = os.path.join(tmp, path.replace("/", "_"))
-            res, info = _bench_run(row, path, lambda kw=kw, spill=spill:
+            res, info = _bench_run(table, path, lambda kw=kw, spill=spill:
                                    device_bench.run_device_microbench(
                                        spill, **kw))
-            launches[path] = info["ring_launches"]
+            launches[path] = info["kernel_launches"]
             emit({"phase": "cli_and_benches", "step": path, "args": kw,
                   **res, **info})
 
         for rows_per_dev in (2048, TOPO_ROWS_PER_DEV):
-            ring_exchange.LAUNCHES = 0
+            ring_exchange.LAUNCHES = ragged_exchange.LAUNCHES = 0
             t0 = time.perf_counter()
             res = topo_bench.run_topo_microbench(rows_per_dev=rows_per_dev)
             run_s = time.perf_counter() - t0
@@ -2567,7 +2840,8 @@ def phase_cli_and_benches(row: dict) -> dict:
                                      f"shard: {res}")
             emit({"phase": "cli_and_benches", "step": "topo_bench",
                   "rows_per_dev": rows_per_dev, **res, "run_s": run_s,
-                  "ring_launches": ring_exchange.LAUNCHES})
+                  "kernel_launches": {RING: ring_exchange.LAUNCHES,
+                                      NATIVE: ragged_exchange.LAUNCHES}})
 
         for checksum in (False, True):
             t0 = time.perf_counter()
@@ -2723,7 +2997,7 @@ def lockgraph_worker(out_path: str) -> None:
             "report": graph.format_cycles()}, f)
 
 
-def phase_analysis(row: dict) -> dict:
+def phase_analysis(table: dict) -> dict:
     """The port's analysis suite on the card machine (module docstring,
     phase 16). Returns the kernel's launches per path."""
     t_phase = time.perf_counter()
@@ -2751,6 +3025,7 @@ def phase_analysis(row: dict) -> dict:
     if res["cycles"]:
         raise AssertionError(f"{LG_PATH}: {res['report']}")
     shapes = {tuple(shape): n for shape, n in res.pop("shapes")}
+    KERNEL_OF_PATH[LG_PATH] = NATIVE     # auto on a VirtualMesh
     staged = MS_MAPS * LG_MAP_ROWS * (8 + MS_PAYLOAD)
     emit({"phase": "analysis", "step": "lockgraph_engine",
           "cut": f"the engine stage's records cut from 1 GiB to "
@@ -2760,8 +3035,8 @@ def phase_analysis(row: dict) -> dict:
           **res, "distinct_orderings": len(res["orderings"]),
           "process_s": process_s, "acyclic": True, "all_exact": True,
           "reduce_gb_per_s": staged / res["reduce_s"] / 1e9,
-          "ring_launches": res["launches"],
-          "ring_shapes": _check_path_shapes(row, LG_PATH, shapes)})
+          "kernel_launches": res["launches"],
+          "kernel_shapes": _check_path_shapes(table, LG_PATH, shapes)})
     emit({"phase": "analysis", "step": "done",
           "wall_s": time.perf_counter() - t_phase})
     return {LG_PATH: res["launches"]}
@@ -2771,39 +3046,44 @@ def main() -> None:
     phase_device()
     phase_build()
     cfg = TeraSortConfig(rows_per_device=DATA_BYTES // 100 // SHARDS)
-    row = phase_kernel(cfg)
-    launches = {"terasort": phase_main_path(cfg, row)}
-    launches.update(phase_streamed(cfg, row))
-    launches.update(phase_bench(row))
-    phase_kernel_chunked(row)
+    table = {RING: phase_kernel(cfg), NATIVE: phase_kernel_native(cfg)}
+    launches = phase_main_path(cfg, table)
+    launches.update(phase_streamed(cfg, table))
+    launches.update(phase_bench(table))
+    phase_kernel_chunked(table[RING])
     mesh = VirtualMesh(SHARDS)
-    launches["chunked/als"] = phase_als(mesh, row)
-    launches["pagerank"] = phase_pagerank(mesh, row)
-    launches["join"] = phase_join(mesh, row)
-    launches["tpcds"] = phase_tpcds(mesh, row)
-    launches["q95"] = phase_q95(mesh, row)
-    launches["q64"] = phase_q64(mesh, row)
+    launches["chunked/als"] = phase_als(mesh, table)
+    launches["pagerank"] = phase_pagerank(mesh, table)
+    launches["join"] = phase_join(mesh, table)
+    launches["tpcds"] = phase_tpcds(mesh, table)
+    launches["q95"] = phase_q95(mesh, table)
+    launches["q64"] = phase_q64(mesh, table)
     launches["fused_rounds"], rows, dest, flat = phase_fused_rounds(mesh,
-                                                                    row)
-    launches["hierarchical"] = phase_hierarchical(mesh, row, rows, dest,
+                                                                    table)
+    launches["hierarchical"] = phase_hierarchical(mesh, table, rows, dest,
                                                   flat)
     del rows, dest, flat
     keys, payload, generate_s = _mesh_records()
-    mesh_launches, want = phase_mesh_service(mesh, row, keys, payload,
+    mesh_launches, want = phase_mesh_service(mesh, table, keys, payload,
                                              generate_s)
     launches.update(mesh_launches)
-    launches.update(phase_engine(mesh, row, keys, payload, want))
+    launches.update(phase_engine(mesh, table, keys, payload, want))
     del keys, payload
     want_partitions = _partition_digests(want)
     del want
-    launches.update(phase_engine_q95(mesh, row))
+    launches.update(phase_engine_q95(mesh, table))
     phase_small_runs(mesh)
-    launches.update(phase_multihost(row, cfg, want_partitions))
-    launches.update(phase_cli_and_benches(row))
-    launches.update(phase_analysis(row))
-    row["launches"] = sum(launches.values())
-    row["launches_by_path"] = launches
-    emit({"kernels": [row]})
+    launches.update(phase_multihost(table, cfg, want_partitions))
+    launches.update(phase_cli_and_benches(table))
+    launches.update(phase_analysis(table))
+    for kernel, row in table.items():
+        mine = {path: n for path, n in launches.items()
+                if KERNEL_OF_PATH[path] == kernel}
+        if not sum(mine.values()):
+            raise AssertionError(f"no path launched {kernel}")
+        row["launches"] = sum(mine.values())
+        row["launches_by_path"] = mine
+    emit({"kernels": list(table.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

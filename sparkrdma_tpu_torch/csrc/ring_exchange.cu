@@ -1,5 +1,7 @@
 // Ring all-to-all over the virtual mesh: the block transpose of the
-// per-shard send buffers, out[j, i] = blocks[i, j].
+// per-shard send buffers, out[j, i] = blocks[i, j]; and the ragged
+// all-to-all (ragged_all_to_all_launch, its own section below), which
+// copies each pair with the same load/store body.
 //
 // Replaces sparkrdma_tpu/ops/ring_exchange.py::_ring_kernel (called by
 // ring_all_to_all_shard, the pl.pallas_call at ring_exchange.py:127). On
@@ -160,32 +162,22 @@ __device__ __forceinline__ void copy_tile(const int4* __restrict__ s4,
   }
 }
 
-__global__ void __launch_bounds__(kLdstThreads)
-ring_ldst_kernel(const __grid_constant__ Bases bases, int num_src,
-                 int src_begin, long long block_words) {
-  const int lane = static_cast<int>(threadIdx.x & 31);
-  const int pair = static_cast<int>(blockIdx.y);
-  const long long tile =
-      static_cast<long long>(blockIdx.x) * kLdstWarps + threadIdx.x / 32;
-  const int dst_shard = pair / num_src;
-  const int src_local = pair % num_src;
-  const int32_t* __restrict__ src =
-      reinterpret_cast<const int32_t*>(bases.src[src_local]) +
-      static_cast<long long>(dst_shard) * block_words;
-  int32_t* __restrict__ dst =
-      reinterpret_cast<int32_t*>(bases.dst[dst_shard]) +
-      static_cast<long long>(src_begin + src_local) * block_words;
-  // every value below but the lane's own indices is the same in the warp,
-  // so the warp stays converged through the shuffles
-  const Interior in = interior_of(src, dst, block_words);
+// Tile `tile` of one pair's copy of n words from src to dst, by one warp:
+// the tile's 128 interior vectors, and for tile 0 also the scalar head
+// and tail. Every value but the lane's own indices is the same in the
+// warp, so the warp stays converged through the shuffles.
+__device__ __forceinline__ void copy_pair_tile(
+    const int32_t* __restrict__ src, int32_t* __restrict__ dst,
+    long long n, long long tile, int lane) {
+  const Interior in = interior_of(src, dst, n);
   // tile 0 also copies the head's and the tail's words, at most 15, one
   // a lane: loaded here and stored last, so its load is in flight
   // together with the tile's vector loads
-  long long w = block_words;
+  long long w = n;
   if (tile == 0) {
     w = lane < in.head ? lane : in.head + 4 * in.nvec + (lane - in.head);
   }
-  const int32_t word = w < block_words ? src[w] : 0;
+  const int32_t word = w < n ? src[w] : 0;
   const long long first = tile * kTileVecs;
   if (first < in.nvec) {
     const int4* s4 =
@@ -199,7 +191,25 @@ ring_ldst_kernel(const __grid_constant__ Bases bases, int num_src,
       default: copy_tile<3>(s4, d4, left, lane); break;
     }
   }
-  if (w < block_words) dst[w] = word;
+  if (w < n) dst[w] = word;
+}
+
+__global__ void __launch_bounds__(kLdstThreads)
+ring_ldst_kernel(const __grid_constant__ Bases bases, int num_src,
+                 int src_begin, long long block_words) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int pair = static_cast<int>(blockIdx.y);
+  const long long tile =
+      static_cast<long long>(blockIdx.x) * kLdstWarps + threadIdx.x / 32;
+  const int dst_shard = pair / num_src;
+  const int src_local = pair % num_src;
+  const int32_t* src =
+      reinterpret_cast<const int32_t*>(bases.src[src_local]) +
+      static_cast<long long>(dst_shard) * block_words;
+  int32_t* dst =
+      reinterpret_cast<int32_t*>(bases.dst[dst_shard]) +
+      static_cast<long long>(src_begin + src_local) * block_words;
+  copy_pair_tile(src, dst, block_words, tile, lane);
 }
 
 int launch_ldst(const Bases& bases, int num_dst, int src_begin, int num_src,
@@ -230,6 +240,137 @@ int launch(const void* bases, int num_dst, int src_begin, int num_src,
                      num_src, block_bytes, static_cast<cudaStream_t>(stream));
 }
 
+// ---- the ragged all-to-all ----------------------------------------------
+//
+// Replaces the JAX package's `native` transport, the XLA collective
+// lax.ragged_all_to_all in ragged_exchange_shard
+// (sparkrdma_tpu/parallel/exchange.py:177-180): each (source i,
+// destination j) pair is one contiguous run of mat[i, j] rows, from row
+// start[i, j] of data[i] (start = the exclusive prefix of mat along j) to
+// row land[i, j] of out[j] (land = the exclusive prefix of mat[:, j] over
+// sources), with no slots, no padding and no pack. Rows at or past
+// out_rows are not written (the gather transport's truncation) and rows
+// of out past each receiver's total keep their values.
+//
+// What bounds it: bytes, each copied row read once and written once, so
+// its least time is 2 * sum(rows) * W * 4 bytes over the memory rate.
+// Each pair is the ring's pair with its own length and bases, so the
+// ring's load/store body copies it (copy_pair_tile). The grid is sized
+// from the send ranges alone, never from the counts, so a launch reads
+// nothing on the host and can be captured in a CUDA graph:
+// (tile groups over a source's cap*W words plus one tile a pair, D
+// sources). A warp finds its pair by a warp scan of the D pairs' tile
+// counts, 32 pairs at a time, and copies that tile; a warp past its
+// source's last tile exits. ragged_book_kernel, one block launched
+// before it, turns the int32 counts into the int64 counts, starts and
+// lands the warps read.
+
+constexpr int kBookThreads = kMaxShards;
+
+// book[0][i][j] = max(mat[i][j], 0), book[1][i][j] = the exclusive
+// prefix of book[0][i] along j, book[2][i][j] = the exclusive prefix of
+// book[0][.][j] over sources i.
+__global__ void __launch_bounds__(kBookThreads)
+ragged_book_kernel(const int32_t* __restrict__ mat,
+                   long long* __restrict__ book, int d) {
+  const int t = static_cast<int>(threadIdx.x);
+  if (t >= d) return;
+  const long long dd = static_cast<long long>(d) * d;
+  long long acc = 0;
+  for (int j = 0; j < d; ++j) {
+    const long long c = max(mat[t * d + j], 0);
+    book[t * d + j] = c;
+    book[dd + t * d + j] = acc;
+    acc += c;
+  }
+  acc = 0;
+  for (int i = 0; i < d; ++i) {
+    book[2 * dd + i * d + t] = acc;
+    acc += max(mat[i * d + t], 0);
+  }
+}
+
+__global__ void __launch_bounds__(kLdstThreads)
+ragged_ldst_kernel(const int32_t* __restrict__ data,
+                   int32_t* __restrict__ out,
+                   const long long* __restrict__ book, int d,
+                   long long cap_rows, long long out_rows,
+                   long long row_words) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int src_shard = static_cast<int>(blockIdx.y);
+  const long long tile =
+      static_cast<long long>(blockIdx.x) * kLdstWarps + threadIdx.x / 32;
+  const long long dd = static_cast<long long>(d) * d;
+  const long long* counts = book + static_cast<long long>(src_shard) * d;
+  const long long* starts = counts + dd;
+  const long long* lands = counts + 2 * dd;
+  const int32_t* shard =
+      data + static_cast<long long>(src_shard) * cap_rows * row_words;
+  long long before = 0;  // tiles of the pairs of earlier rounds
+  for (int j0 = 0; j0 < d; j0 += 32) {
+    // lane l takes pair j0 + l: its words, word offsets and tiles
+    const int j = j0 + lane;
+    long long n = 0, src_off = 0, dst_off = 0, tiles = 0;
+    if (j < d) {
+      const long long start = starts[j];
+      const long long land = lands[j];
+      // rows past the source's capacity are not read, rows at or past
+      // the receiver's capacity are not written
+      const long long rows =
+          min(counts[j], min(cap_rows - start, out_rows - land));
+      if (rows > 0) {
+        n = rows * row_words;
+        src_off = start * row_words;
+        dst_off = (static_cast<long long>(j) * out_rows + land) * row_words;
+        const Interior in = interior_of(shard + src_off, out + dst_off, n);
+        tiles = in.nvec > 0 ? (in.nvec + kTileVecs - 1) / kTileVecs : 1;
+      }
+    }
+    long long incl = tiles;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const long long total = __shfl_sync(0xffffffffu, incl, 31);
+    if (tile < before + total) {  // the same in the whole warp
+      const int owner =
+          __ffs(__ballot_sync(0xffffffffu, before + incl > tile)) - 1;
+      const long long first = __shfl_sync(0xffffffffu, incl - tiles, owner);
+      const long long pn = __shfl_sync(0xffffffffu, n, owner);
+      const long long ps = __shfl_sync(0xffffffffu, src_off, owner);
+      const long long pd = __shfl_sync(0xffffffffu, dst_off, owner);
+      copy_pair_tile(shard + ps, out + pd, pn, tile - before - first, lane);
+      return;
+    }
+    before += total;
+  }
+}
+
+int launch_ragged(const int32_t* data, int32_t* out, const int32_t* mat,
+                  long long* book, int d, long long cap_rows,
+                  long long out_rows, long long row_words,
+                  cudaStream_t stream) {
+  if (d < 1 || d > kMaxShards || cap_rows < 1 || out_rows < 1 ||
+      row_words < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // a pair's tiles are its interior's vectors over kTileVecs, or 1 for a
+  // pair of scalar words only: at most a source's cap*W/4 vectors over
+  // kTileVecs, plus one a pair
+  const long long tiles =
+      (cap_rows * row_words / 4 + kTileVecs - 1) / kTileVecs + d;
+  const long long groups = (tiles + kLdstWarps - 1) / kLdstWarps;
+  if (groups > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  ragged_book_kernel<<<1, kBookThreads, 0, stream>>>(mat, book, d);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(static_cast<unsigned>(groups), static_cast<unsigned>(d));
+  ragged_ldst_kernel<<<grid, kLdstThreads, 0, stream>>>(
+      data, out, book, d, cap_rows, out_rows, row_words);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // bases: host pointer to a Bases (D source bases, then D destination
@@ -254,6 +395,24 @@ extern "C" int ring_all_to_all_launch_range(const void* bases, int num_dst,
                                             long long block_bytes,
                                             void* stream) {
   return launch(bases, num_dst, src_begin, num_src, block_bytes, stream);
+}
+
+// The ragged all-to-all: data [D, cap_rows, row_words] and out [D,
+// out_rows, row_words] int32 (device), mat [D, D] int32 counts (device,
+// mat[i, j] rows from shard i to shard j; shard i's rows grouped by
+// destination), book a device scratch of 3*D*D long longs that the
+// launch fills before its copy reads it. Writes out in place. Two
+// launches on `stream`; returns the first error (0 = launched).
+extern "C" int ragged_all_to_all_launch(const void* data, void* out,
+                                        const void* mat, void* book,
+                                        int num_shards, long long cap_rows,
+                                        long long out_rows,
+                                        long long row_words, void* stream) {
+  return launch_ragged(static_cast<const int32_t*>(data),
+                       static_cast<int32_t*>(out),
+                       static_cast<const int32_t*>(mat),
+                       static_cast<long long*>(book), num_shards, cap_rows,
+                       out_rows, row_words, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ring_all_to_all_max_shards() { return kMaxShards; }

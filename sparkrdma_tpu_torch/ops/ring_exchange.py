@@ -46,8 +46,9 @@ PEER = {"arena_growths": 0, "ipc_opens": 0, "ipc_open_s": 0.0}
 _KERNEL = "ring_exchange"
 
 MAX_SHARDS = 128          # kMaxShards in csrc/ring_exchange.cu
-# csrc/ring_exchange.cu's extern "C" functions: name -> (argtypes,
-# restype); a byte buffer (c_char_p) stands for a void pointer
+# csrc/ring_exchange.cu's extern "C" functions (ragged_all_to_all_launch
+# is ops/ragged_exchange.py's): name -> (argtypes, restype); a byte
+# buffer (c_char_p) stands for a void pointer
 _P = ctypes.POINTER
 SIGNATURES = {
     "ring_all_to_all_launch": (
@@ -55,6 +56,10 @@ SIGNATURES = {
         ctypes.c_int),
     "ring_all_to_all_launch_range": (
         (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_longlong, ctypes.c_void_p), ctypes.c_int),
+    "ragged_all_to_all_launch": (
+        (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_longlong, ctypes.c_void_p), ctypes.c_int),
     "ring_all_to_all_max_shards": ((), ctypes.c_int),
     "ring_all_to_all_error_string": ((ctypes.c_int,), ctypes.c_char_p),

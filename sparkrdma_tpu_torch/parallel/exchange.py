@@ -23,9 +23,13 @@ Transports (``impl``):
   (the ``lax.all_to_all`` of the JAX package).
 * ``"gather"`` — direct compaction of each source's segment, the
   semantics of the JAX ``all_gather`` + mask-compaction oracle.
-* ``"native"`` — ``lax.ragged_all_to_all`` in the JAX package: here a
-  ragged ``all_to_all_single`` over a ``GlobalMesh``'s process group. On
-  a ``VirtualMesh`` it has no meaning and raises ``NotImplementedError``.
+* ``"native"`` — ``lax.ragged_all_to_all`` in the JAX package, and as
+  there the default on the accelerator: each (source, destination) pair
+  moves as one contiguous run of rows, with no slots and no pack. On one
+  card (a ``VirtualMesh`` or a plain device) the hand-written ragged
+  all-to-all kernel (``ops.ragged_exchange``) copies every pair in one
+  launch; over a ``GlobalMesh`` it is a ragged ``all_to_all_single`` over
+  the process group.
 
 Over a ``GlobalMesh`` (several processes, ``parallel/multihost.py``;
 ``ragged_exchange_global``) each process passes its own ``[Dl, cap,
@@ -55,6 +59,7 @@ from torch.profiler import record_function
 
 import torch.distributed as dist
 
+from sparkrdma_tpu_torch.ops.ragged_exchange import ragged_all_to_all
 from sparkrdma_tpu_torch.ops.ring_exchange import (
     ring_all_to_all,
     ring_all_to_all_peers,
@@ -69,7 +74,7 @@ from sparkrdma_tpu_torch.utils.u32 import rows_from_numpy
 DATA_PLANE = {"exchanges": 0, "rows": 0}
 _DATA_PLANE_LOCK = threading.Lock()
 
-TRANSPORTS = ("ring", "dense", "gather")
+TRANSPORTS = ("ring", "dense", "gather", "native")
 
 
 def record_exchange(rows: int) -> None:
@@ -147,29 +152,26 @@ def _pack_by_source(blocks: torch.Tensor, recv_counts: torch.Tensor,
 
 
 def resolve_impl(device, impl: str = "auto") -> str:
-    """``auto`` -> ``ring`` on ``cuda`` and ``gather`` on the CPU (as the
-    JAX package resolves ``auto`` to ``gather`` off the TPU). ``device``
-    is a ``torch.device``, a ``VirtualMesh`` or a ``GlobalMesh``.
+    """``auto`` -> ``native`` on ``cuda`` and ``gather`` on the CPU, as the
+    JAX package resolves ``auto`` to ``native`` on a TPU mesh and to
+    ``gather`` off it. ``device`` is a ``torch.device``, a ``VirtualMesh``
+    or a ``GlobalMesh``.
 
-    On one card every transport is a device-local copy; ``ring`` is the
-    one with a kernel of its own, so it is the card's default. ``native``
-    (``lax.ragged_all_to_all``) needs a ``GlobalMesh`` and raises
-    ``NotImplementedError`` elsewhere. Over a ``GlobalMesh`` on ``cuda``,
-    ``dense``, ``gather`` and ``native`` move device rows with the
-    process group's collectives, so they raise where the mesh has no
-    group whose backend takes cuda tensors: rows never detour through
-    host memory in the kernel's place."""
-    if impl == "native":
-        if not isinstance(device, GlobalMesh):
-            raise NotImplementedError(
-                "impl='native' is lax.ragged_all_to_all across processes; "
-                "it needs a GlobalMesh (parallel/multihost.py) and has no "
-                "single-card meaning")
-    elif impl != "auto" and impl not in TRANSPORTS:
+    On one card ``native`` is the ragged all-to-all kernel, which moves
+    each pair's rows once and needs no slot; ``ring`` (the slot layout
+    and the ring kernel) stays an explicit ask. Over a ``GlobalMesh`` on
+    ``cuda``, ``auto`` is ``ring``, whose kernel writes through CUDA IPC
+    peer pointers; ``dense``, ``gather`` and ``native`` there move device
+    rows with the process group's collectives, so they raise where the
+    mesh has no group whose backend takes cuda tensors: rows never
+    detour through host memory in the kernel's place."""
+    if impl != "auto" and impl not in TRANSPORTS:
         raise ValueError(f"unknown exchange impl {impl!r}")
     dev = torch.device(getattr(device, "device", device))
     if impl == "auto":
-        return "ring" if dev.type == "cuda" else "gather"
+        if dev.type != "cuda":
+            return "gather"
+        return "ring" if isinstance(device, GlobalMesh) else "native"
     if (isinstance(device, GlobalMesh) and impl != "ring"
             and device.data_group is None):
         raise RuntimeError(
@@ -182,10 +184,10 @@ def resolve_impl(device, impl: str = "auto") -> str:
 
 
 def resolve_transport(device, impl: str) -> str:
-    """The resolution every step builder shares. The JAX package passes
-    ring transports through unprobed and probes the rest; with no
-    compiler probe on one card this is ``resolve_impl``."""
-    return resolve_impl(device, impl)
+    """The resolution every step builder shares: ``ring`` passes through
+    unprobed (an explicit ask), the rest goes through ``resolve_impl``,
+    as in the JAX package."""
+    return impl if impl == "ring" else resolve_impl(device, impl)
 
 
 def ragged_exchange_shard(data: torch.Tensor, send_counts: torch.Tensor,
@@ -206,12 +208,15 @@ def ragged_exchange_shard(data: torch.Tensor, send_counts: torch.Tensor,
       output: optional ``[D, out_capacity, ...]`` receive buffer
         (defaults to zeros shaped like ``data``); supplies the rows past
         each shard's received total.
-      impl: ``ring``, ``dense``, ``gather`` or ``auto`` (see
+      impl: ``native``, ``ring``, ``dense``, ``gather`` or ``auto`` (see
         ``resolve_impl``). Identical results whenever the slots fit.
+        ``native`` writes into ``output`` in place and returns it as
+        ``received``.
       slot_rows: rows per (source, destination) slot of the slot
         transports (``ring``, ``dense``); defaults to ``out_capacity //
         D``. A caller that knows the largest pair sizes the slot to it,
-        and then only the receive capacity can overflow.
+        and then only the receive capacity can overflow. ``native`` and
+        ``gather`` have no slots and ignore it.
 
     Returns:
       ``(received, recv_counts, recv_offsets, overflowed)``: ``received
@@ -240,6 +245,9 @@ def ragged_exchange_shard(data: torch.Tensor, send_counts: torch.Tensor,
     elif impl == "ring":
         received, recv_sizes, pair_overflow = _ring_exchange(
             data, mat, output, q)
+    elif impl == "native":
+        with record_function("exchange.transport"):
+            received = _native_exchange(data, mat, output)
     else:
         received = _gather_exchange(data, mat, output)
     overflowed = pair_overflow | (recv_sizes.sum(dim=1) > output.shape[1])
@@ -291,6 +299,23 @@ def _ring_exchange(data: torch.Tensor, mat: torch.Tensor,
                    output: torch.Tensor, q: int):
     """The same slots, moved by the ring all-to-all kernel."""
     return _slot_exchange(data, mat, output, q, _ring_move_blocks)
+
+
+def _native_exchange(data: torch.Tensor, mat: torch.Tensor,
+                     output: torch.Tensor) -> torch.Tensor:
+    """``lax.ragged_all_to_all`` with the offsets the JAX package derives:
+    every pair's rows copied once, as int32 words, by the ragged
+    all-to-all kernel (its plain version on the CPU), into ``output``
+    (a contiguous copy of it if it is not contiguous), which is
+    returned."""
+    out = output if output.is_contiguous() else output.contiguous()
+    if data.numel() == 0 or out.numel() == 0:
+        return out
+    d, cap = data.shape[0], data.shape[1]
+    words = data.contiguous().reshape(d, cap, -1).view(torch.int32)
+    ragged_all_to_all(words, mat.contiguous(),
+                      out.reshape(d, out.shape[1], -1).view(torch.int32))
+    return out
 
 
 def _gather_exchange(data: torch.Tensor, mat: torch.Tensor,

@@ -17,7 +17,7 @@ from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 from sparkrdma_tpu_torch.utils.u32 import rows_from_numpy
 
 D = 8
-PORT_IMPLS = ("ring", "dense", "gather")
+PORT_IMPLS = ("ring", "dense", "gather", "native")
 
 
 @pytest.fixture(scope="module")

@@ -6,7 +6,10 @@ replayed in a CUDA graph), its argument
 checks, the TeraSort step and the chunked exchange on the card against
 the same calls on the CPU, q95 and q64 on the ring against ``dense``,
 pinned staging, the round and hierarchical drivers, and a mesh-mode
-engine job. Marked ``cuda``; each skips with a reason where there is no
+engine job; the ragged all-to-all kernel (the ``native`` transport)
+against its plain version and the ``gather`` transport, inside guard
+words, at every alignment, at the shard limit and replayed in a CUDA
+graph. Marked ``cuda``; each skips with a reason where there is no
 card. This file imports no JAX, so it runs on a
 machine without it:
 
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from sparkrdma_tpu_torch.ops import ragged_exchange as rex
 from sparkrdma_tpu_torch.ops import ring_exchange as tre
 
 pytestmark = pytest.mark.cuda
@@ -74,7 +78,7 @@ def test_kernel_refuses_bad_arguments(cuda):
                                         device=cuda).transpose(0, 1))
 
 
-@pytest.mark.parametrize("impl", ["ring", "dense", "gather"])
+@pytest.mark.parametrize("impl", ["ring", "dense", "gather", "native"])
 def test_terasort_step_on_card_matches_cpu(cuda, impl):
     from sparkrdma_tpu_torch.models.terasort import (
         TeraSortConfig, generate_rows, make_terasort_step)
@@ -92,11 +96,11 @@ def test_terasort_step_on_card_matches_cpu(cuda, impl):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("impl", ["ring", "dense", "gather"])
+@pytest.mark.parametrize("impl", ["ring", "dense", "gather", "native"])
 def test_chunked_exchange_on_card_matches_cpu(cuda, impl):
     """A skewed multi-round chunked exchange (3-word rows, non-pow2
     quota): the card's rows and round count equal the CPU's, and the ring
-    rounds launch the kernel once each."""
+    and native rounds launch their kernel once each."""
     from sparkrdma_tpu_torch.parallel.exchange import chunked_exchange
     from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 
@@ -105,14 +109,15 @@ def test_chunked_exchange_on_card_matches_cpu(cuda, impl):
     counts[:, 0] = 1500                        # everyone floods shard 0
     cap = int(counts.sum(axis=1).max())
     rows = rng.integers(0, 2**32, (8 * cap, 3), dtype=np.uint32)
-    before = tre.LAUNCHES
+    before = tre.LAUNCHES, rex.LAUNCHES
     got, rounds = chunked_exchange(VirtualMesh(8, cuda), rows, counts,
                                    quota=300, impl=impl)
-    launched = tre.LAUNCHES - before
+    launched = tre.LAUNCHES - before[0], rex.LAUNCHES - before[1]
     want, want_rounds = chunked_exchange(VirtualMesh(8, "cpu"), rows, counts,
                                          quota=300, impl=impl)
     assert rounds == want_rounds == 3          # 1500 rows in rounds of 512
-    assert launched == (rounds if impl == "ring" else 0)
+    assert launched == (rounds if impl == "ring" else 0,
+                        rounds if impl == "native" else 0)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
 
@@ -339,7 +344,8 @@ def test_stage_to_device_goes_through_pinned_memory(cuda):
 def test_round_drivers_on_card(cuda):
     """The double-buffered driver on the card: pipelined and sequential
     runs are byte-equal and equal the CPU's; the hierarchical driver on
-    two slices equals the flat one; the ring launches once per round."""
+    two slices equals the flat one; ``auto`` is ``native``, whose kernel
+    launches once per round, and the ring's run equals it."""
     from sparkrdma_tpu_torch.parallel import device_plane as tdp
     from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
     from sparkrdma_tpu_torch.parallel.topology import Topology
@@ -352,17 +358,20 @@ def test_round_drivers_on_card(cuda):
     home = (np.arange(n_rows) * 8 // n_rows // 4).astype(np.int32)
     kw = dict(key_words=2, rows_per_round=1000, out_factor=2)
     mesh = VirtualMesh(8, cuda)
-    before = tre.LAUNCHES
+    before = rex.LAUNCHES
     piped, rounds = tdp.run_fused_exchange(mesh, rows, dest, **kw)
-    assert rounds == 3 and tre.LAUNCHES - before == rounds
+    assert rounds == 3 and rex.LAUNCHES - before == rounds
     seq, _ = tdp.run_fused_exchange(mesh, rows, dest, pipeline_rounds=False,
                                     **kw)
+    before = tre.LAUNCHES
+    ring, _ = tdp.run_fused_exchange(mesh, rows, dest, impl="ring", **kw)
+    assert tre.LAUNCHES - before == rounds
     cpu, _ = tdp.run_fused_exchange(VirtualMesh(8, "cpu"), rows, dest,
                                     impl="ring", **kw)
     hier, _ = tdp.run_hierarchical_exchange(mesh, Topology((4, 4)), rows,
                                             dest, home, **kw)
     for d in range(8):
-        for other in (seq, cpu, hier):
+        for other in (seq, ring, cpu, hier):
             np.testing.assert_array_equal(piped[d], other[d])
         keys = piped[d][:, :2].copy().view(np.uint64).reshape(-1)
         assert (keys % 8 == d).all() and (keys[:-1] <= keys[1:]).all()
@@ -488,17 +497,17 @@ def test_reader_read_to_device_stages_through_the_pool_on_card(
 @pytest.mark.parametrize("rows_per_round", [0, 1000])
 def test_mesh_reduce_fused_on_card_matches_cpu(cuda, committed_stage,
                                                rows_per_round):
-    """The fused mesh reduce on the card (the ring kernel once per round)
-    equals the same call on the CPU, byte for byte."""
+    """The fused mesh reduce on the card (``auto``: the ragged kernel once
+    per round) equals the same call on the CPU, byte for byte."""
     from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
     from sparkrdma_tpu_torch.shuffle import mesh_service as tms
 
     executors, handle = committed_stage
-    before = tre.LAUNCHES
+    before = rex.LAUNCHES
     got = tms.run_mesh_reduce_fused(executors, handle, VirtualMesh(8, cuda),
                                     rows_per_round=rows_per_round,
                                     expect_maps=handle.num_maps)
-    assert tre.LAUNCHES - before == (2 if rows_per_round else 1)
+    assert rex.LAUNCHES - before == (2 if rows_per_round else 1)
     want = tms.run_mesh_reduce_fused(executors, handle,
                                      VirtualMesh(8, "cpu"), impl="ring",
                                      rows_per_round=rows_per_round)
@@ -512,11 +521,11 @@ def test_mesh_reduce_fused_on_card_matches_cpu(cuda, committed_stage,
 def test_engine_job_on_card_rides_the_device_plane(cuda, tmp_path,
                                                    monkeypatch, P):
     """A small mesh-mode ``DAGEngine`` job on the card: the cost model
-    picks the device plane, the ring kernel runs, no stage degrades, no
-    TCP fetcher is built, and every partition equals the host truth. With
-    4 partitions a round's source shard sends to one or two destinations
-    (committed outputs are partition-contiguous): the ring's slots must
-    grow to the largest pair."""
+    picks the device plane, the ragged kernel runs (``auto``), no stage
+    degrades, no TCP fetcher is built, and every partition equals the
+    host truth. With 4 partitions a round's source shard sends to one or
+    two destinations (committed outputs are partition-contiguous), which
+    the native transport carries with no slot."""
     from sparkrdma_tpu_torch.config import TpuShuffleConf
     from sparkrdma_tpu_torch.engine import DAGEngine, MapStage, ResultStage
     from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
@@ -565,9 +574,9 @@ def test_engine_job_on_card_rides_the_device_plane(cuda, tmp_path,
         engine.tracer = Tracer()
         stage = MapStage(maps, ShuffleDependency(
             P, PartitionerSpec("hash"), row_payload_bytes=width), map_fn)
-        before = tre.LAUNCHES
+        before = rex.LAUNCHES
         out = engine.run(ResultStage(P, reduce_fn, parents=[stage]))
-        assert tre.LAUNCHES > before
+        assert rex.LAUNCHES > before
     finally:
         for ex in execs:
             ex.stop()
@@ -658,3 +667,182 @@ def test_two_process_ipc_exchange_on_card(cuda):
             p.kill()
     for i, out in enumerate(outs):
         assert f"IPC_OK {i}" in out, out[-3000:]
+
+
+# -- the ragged all-to-all kernel (the native transport) --------------------
+
+def _ragged_counts(kind: str, d: int, cap: int, seed: int) -> np.ndarray:
+    """int32[d, d] counts, each row summing to at most ``cap``: random,
+    skewed to shard 0, empty, every source's rows to one receiver (past
+    any receive capacity below ``d * cap``), zero rows and columns."""
+    rng = np.random.default_rng(seed)
+    if kind == "empty":
+        return np.zeros((d, d), np.int32)
+    if kind == "flood":
+        mat = np.zeros((d, d), np.int32)
+        mat[:, d // 2] = cap
+        return mat
+    p = np.full(d, 1.0 / d)
+    if kind == "skewed":
+        p = np.full(d, 0.1 / max(1, d - 1))
+        p[0] = 0.9 if d > 1 else 1.0
+    mat = np.stack([rng.multinomial(rng.integers(0, cap + 1), p / p.sum())
+                    for _ in range(d)]).astype(np.int32)
+    if kind == "holes":
+        mat[d // 2] = 0
+        mat[:, -1] = 0
+    return mat
+
+
+def _guarded(shape, offset: int, device, fill=SENTINEL):
+    """A zeroed ``int32`` tensor of ``shape`` ``offset`` words past a
+    16-byte boundary inside a buffer of ``fill`` guard words; returns
+    ``(buffer, lo, tensor)``."""
+    n = int(np.prod(shape))
+    buf = torch.full((2 * GUARD + 4 + n,), fill, dtype=torch.int32,
+                     device=device)
+    lo = GUARD + (-(buf.data_ptr() // 4 + GUARD)) % 4 + offset
+    out = buf[lo:lo + n].view(shape)
+    out.zero_()
+    return buf, lo, out
+
+
+def _ragged_check(cuda, d, cap, w, out_cap, mat, src_off=0, dst_off=0,
+                  seed=0):
+    """One launch into a guarded output against the plain version and the
+    gather transport; the data at ``src_off`` words past 16 bytes."""
+    from sparkrdma_tpu_torch.parallel.exchange import _gather_exchange
+
+    flat = _blocks((4 + d * cap * w,), seed, cuda)
+    pad = (-flat.data_ptr() // 4) % 4
+    data = flat[pad + src_off:pad + src_off + d * cap * w].view(d, cap, w)
+    m = torch.from_numpy(mat).to(cuda)
+    buf, lo, out = _guarded((d, out_cap, w), dst_off, cuda)
+    before = rex.LAUNCHES
+    got = rex.ragged_all_to_all(data, m, out)
+    torch.cuda.synchronize()
+    assert got is out and rex.LAUNCHES == before + 1
+    want = rex.ragged_all_to_all_plain(data.cpu(), m.cpu(),
+                                       torch.zeros((d, out_cap, w),
+                                                   dtype=torch.int32))
+    case = (d, cap, w, out_cap, src_off, dst_off)
+    assert torch.equal(out.cpu(), want), case
+    gathered = _gather_exchange(data, m, torch.zeros_like(out))
+    assert torch.equal(out, gathered), case
+    n = out.numel()
+    assert (buf[:lo] == SENTINEL).all() and (buf[lo + n:] == SENTINEL).all()
+
+
+@pytest.mark.parametrize("kind", ["random", "skewed", "empty", "flood",
+                                  "holes"])
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 25])
+def test_ragged_kernel_matches_plain_and_gather(cuda, kind, w):
+    """Every count pattern at every row width, with the receive capacity
+    at the send capacity (a flood truncates) and at twice it, data and
+    output at offsets 0-3 words past 16 bytes; pairs of a few words and
+    of several warp tiles."""
+    d = 8
+    for cap in (37, 3000):
+        mat = _ragged_counts(kind, d, cap, cap + w)
+        for out_cap in (cap, 2 * cap):
+            for off in range(4):
+                _ragged_check(cuda, d, cap, w, out_cap, mat, off,
+                              (off + w) % 4, seed=off)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 33, 128])
+def test_ragged_kernel_shard_counts(cuda, d):
+    """One shard up to ``MAX_SHARDS``: more than 32 pairs a source takes
+    several rounds of the warp's pair scan."""
+    for kind in ("random", "holes"):
+        _ragged_check(cuda, d, 40, 3, 45, _ragged_counts(kind, d, 40, d),
+                      1, 2)
+
+
+def test_ragged_kernel_keeps_rows_past_each_total(cuda):
+    """Rows of ``output`` past each receiver's total keep their values."""
+    d, cap, w = 8, 100, 3
+    data = _blocks((d, cap, w), 1, cuda)
+    mat = torch.from_numpy(_ragged_counts("random", d, cap, 2)).to(cuda)
+    filler = _blocks((d, 2 * cap, w), 3, cuda)
+    got = rex.ragged_all_to_all(data, mat, filler.clone())
+    want = rex.ragged_all_to_all_plain(data.cpu(), mat.cpu(), filler.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    totals = mat.sum(dim=0).cpu()
+    for j in range(d):
+        assert torch.equal(got[j, int(totals[j]):], filler[j, int(totals[j]):])
+
+
+def test_ragged_kernel_refuses_bad_arguments(cuda):
+    data = torch.zeros((2, 3, 4), dtype=torch.int32, device=cuda)
+    mat = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    out = torch.zeros((2, 5, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        rex.ragged_all_to_all(data.float(), mat, out)
+    with pytest.raises(ValueError, match="D and W"):
+        rex.ragged_all_to_all(data, mat, out[:, :, :3].contiguous())
+    with pytest.raises(ValueError, match="mat must be"):
+        rex.ragged_all_to_all(data, mat.long(), out)
+    with pytest.raises(ValueError, match="share a device"):
+        rex.ragged_all_to_all(data, mat.cpu(), out)
+    with pytest.raises(ValueError, match="contiguous"):
+        rex.ragged_all_to_all(data, mat, out.transpose(1, 2).contiguous()
+                              .transpose(1, 2))
+    big = tre.MAX_SHARDS + 1
+    with pytest.raises(ValueError, match="at most"):
+        rex.ragged_all_to_all(
+            torch.zeros((big, 1, 1), dtype=torch.int32, device=cuda),
+            torch.zeros((big, big), dtype=torch.int32, device=cuda),
+            torch.zeros((big, 1, 1), dtype=torch.int32, device=cuda))
+
+
+def test_native_exchange_replays_in_a_cuda_graph(cuda):
+    """One ``native`` exchange captured in a CUDA graph (the counts stay
+    on the card: nothing is read on the host) and replayed on new rows
+    and new counts equals the ``gather`` transport on those inputs."""
+    from sparkrdma_tpu_torch.parallel import exchange as tx
+
+    d, cap, w = 8, 5000, 25
+    data = _blocks((d, cap, w), 1, cuda)
+    mat = torch.from_numpy(_ragged_counts("random", d, cap, 1)).to(cuda)
+    out = torch.zeros((d, 2 * cap, w), dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm-up outside the capture
+        tx.ragged_exchange_shard(data, mat, output=out.clone(), impl="native")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.zero_()
+        got = tx.ragged_exchange_shard(data, mat, output=out, impl="native")
+    for seed, kind in ((2, "skewed"), (3, "flood"), (4, "holes")):
+        data.copy_(_blocks((d, cap, w), seed, cuda))
+        mat.copy_(torch.from_numpy(_ragged_counts(kind, d, cap, seed)))
+        before = rex.LAUNCHES
+        graph.replay()
+        torch.cuda.synchronize()
+        assert rex.LAUNCHES == before       # a replay is not a launch call
+        want = tx.ragged_exchange_shard(data, mat, output=torch.zeros_like(
+            out), impl="gather")
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_), kind
+
+
+def test_native_exchange_keeps_the_caller_output_storage(cuda):
+    """``impl="native"`` writes into the caller's contiguous ``output`` and
+    returns it; a non-contiguous ``output`` is copied first and left as it
+    was."""
+    from sparkrdma_tpu_torch.parallel import exchange as tx
+
+    data = _blocks((8, 64, 4), 5, cuda)
+    mat = torch.from_numpy(_ragged_counts("random", 8, 64, 5)).to(cuda)
+    out = torch.zeros((8, 64, 4), dtype=torch.int32, device=cuda)
+    got = tx.ragged_exchange_shard(data, mat, output=out, impl="native")[0]
+    assert got.data_ptr() == out.data_ptr()
+    strided = torch.zeros((8, 4, 64), dtype=torch.int32,
+                          device=cuda).transpose(1, 2)
+    got = tx.ragged_exchange_shard(data, mat, output=strided,
+                                   impl="native")[0]
+    assert got.data_ptr() != strided.data_ptr() and not strided.any()
+    assert torch.equal(got, out)

@@ -1,8 +1,10 @@
 """Parity of the port's ragged exchange (``sparkrdma_tpu_torch.parallel.
 exchange``) with the JAX package's, shard for shard, on the same numpy
 input: received rows (padding included), counts, offsets and overflow
-flags compare exactly, for the ring, dense and gather transports. The JAX
-ring runs its Pallas kernel in interpret mode on the 8-device CPU mesh."""
+flags compare exactly, for the ring, dense, gather and native transports.
+The JAX ring runs its Pallas kernel in interpret mode on the 8-device CPU
+mesh; the JAX ``native`` does not lower on XLA:CPU, so the port's is held
+to JAX ``gather``."""
 
 import functools
 
@@ -18,7 +20,8 @@ from sparkrdma_tpu.utils.compat import shard_map
 from sparkrdma_tpu_torch.parallel import exchange as tx
 
 D = 8
-IMPLS = [("ring", "ring_interpret"), ("dense", "dense"), ("gather", "gather")]
+IMPLS = [("ring", "ring_interpret"), ("dense", "dense"), ("gather", "gather"),
+         ("native", "gather")]
 
 
 @pytest.fixture(scope="module")
@@ -182,13 +185,15 @@ def test_group_by_destination_matches_jax():
 def test_resolve_impl():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert tx.resolve_impl(cpu) == "gather"
-    assert tx.resolve_impl(cuda) == "ring"
+    assert tx.resolve_impl(cuda) == "native"
     assert tx.resolve_transport(cpu, "auto") == "gather"
     for impl in tx.TRANSPORTS:
         assert tx.resolve_impl(cpu, impl) == impl
         assert tx.resolve_transport(cuda, impl) == impl
-    with pytest.raises(NotImplementedError, match="ragged_all_to_all"):
-        tx.resolve_impl(cpu, "native")
+    # native is the ragged all-to-all kernel on one card, not only a
+    # collective across processes
+    assert "native" in tx.TRANSPORTS and tx.resolve_impl(cpu, "native") \
+        == "native"
     with pytest.raises(ValueError, match="unknown exchange impl"):
         tx.resolve_impl(cpu, "ring_interpret")
 

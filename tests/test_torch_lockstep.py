@@ -49,6 +49,7 @@ PORTED = (
     "ops/_build.py",
     "ops/aggregate.py",
     "ops/partition.py",
+    "ops/ragged_exchange.py",
     "ops/ring_exchange.py",
     "ops/sort.py",
     "parallel/device_plane.py",

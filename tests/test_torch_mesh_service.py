@@ -172,7 +172,7 @@ def _jax_result(jax_results, kind, variant, execs, handle, mesh):
     return jax_results[kind, variant]
 
 
-@pytest.mark.parametrize("impl", ["ring", "gather"])
+@pytest.mark.parametrize("impl", ["ring", "gather", "native"])
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_reduce_matches_jax(cluster, shuffles, mesh, vmesh, jax_results,
@@ -187,6 +187,24 @@ def test_reduce_matches_jax(cluster, shuffles, mesh, vmesh, jax_results,
     if variant != "hier":  # the flat placement: partition p on shard p % D
         for d, (_, _, parts) in enumerate(got):
             assert (parts % D == d).all()
+
+
+def test_streamed_native_needs_no_pair_headroom(cluster, shuffles, mesh,
+                                               vmesh, jax_results):
+    """The streamed reduce's ``out_factor = D`` headroom is for the ring's
+    fixed pair slots: at ``out_factor = 2`` the ring overflows a slot of
+    a partition-contiguous round, while ``native`` (no slots) and
+    ``gather`` give the JAX package's bytes."""
+    _, execs = cluster
+    handle, _ = shuffles["hash"]
+    want = _jax_result(jax_results, "hash", "streamed", execs, handle, mesh)
+    for impl in ("native", "gather"):
+        got = _run("port", "streamed", execs, handle, vmesh, impl=impl,
+                   out_factor=2, expect_maps=MAPS)
+        _assert_same(got, want, impl)
+    with pytest.raises(OverflowError, match="receive overflow"):
+        _run("port", "streamed", execs, handle, vmesh, impl="ring",
+             out_factor=2, expect_maps=MAPS)
 
 
 def _first_per_key(keys, payload):

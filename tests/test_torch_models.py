@@ -31,7 +31,7 @@ from sparkrdma_tpu_torch.utils.u32 import rows_from_numpy, shards_from_numpy
 
 D = 8
 PAIRS = [("ring", "dense"), ("dense", "dense"), ("gather", "gather"),
-         ("ring", "gather")]
+         ("ring", "gather"), ("native", "gather")]
 # the slot transports (ring, dense) also flag a pair past its slot, gather
 # only a receive past the capacity: flags agree within each kind
 OVERFLOW_PAIRS = PAIRS[:3]

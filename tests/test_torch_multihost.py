@@ -366,10 +366,10 @@ def test_global_mesh_shards_and_hash():
 
 
 def test_transport_refusals():
-    """``native`` needs a GlobalMesh; on a card whose ranks share it the
-    collective transports raise and name why, and ``auto`` is the ring."""
-    with pytest.raises(NotImplementedError, match="GlobalMesh"):
-        tx.resolve_impl(VirtualMesh(G, "cpu"), "native")
+    """``native`` is a transport of one card too; on a card whose ranks
+    share it the collective transports raise and name why, and ``auto``
+    over the GlobalMesh is the ring."""
+    assert tx.resolve_impl(VirtualMesh(G, "cpu"), "native") == "native"
     card = _fake_mesh("cuda")
     for impl in ("dense", "gather", "native"):
         with pytest.raises(RuntimeError, match="CUDA IPC"):

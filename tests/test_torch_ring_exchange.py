@@ -6,6 +6,7 @@ the card (``test_torch_cuda.py`` and ``chip_smoke.py``)."""
 
 import collections
 import ctypes
+import itertools
 import re
 from pathlib import Path
 
@@ -204,7 +205,7 @@ def test_launch_argtypes_match_the_source(name):
     CUDA source with its parameters' count and C types and its return
     type: without ``nvcc`` here a mismatch would show only on the card,
     as garbage arguments."""
-    assert len(_EXPORTED) == 10 and set(tre.SIGNATURES) == set(_EXPORTED)
+    assert len(_EXPORTED) == 11 and set(tre.SIGNATURES) == set(_EXPORTED)
     ret, params = _EXPORTED[name]
     decls = [p for p in params.split(",") if p.strip() and p.strip() != "void"]
     argtypes, restype = tre.SIGNATURES[name]
@@ -237,19 +238,17 @@ def _interior_of(src: int, dst: int, n: int):
     return head, nvec, r
 
 
-def _run_ldst_pair(mem: list, src: int, dst: int, n: int) -> dict:
-    """One pair of ``ring_ldst_kernel`` over the word memory ``mem``,
-    lane by lane as the CUDA source runs it: the grid of
-    ``launch_ldst``, tile 0's scalar words, ``copy_tile``'s vector loads,
-    warp shuffles and stores. Checks that every load and store lies
-    inside the pair's words (16-byte ones aligned); returns the number
-    of writes to each destination word and the head and tail."""
-    threads, unroll = _cu_constant("kLdstThreads"), _cu_constant("kLdstUnroll")
-    warps, tile_vecs = threads // 32, 32 * unroll
+def _copy_pair_tile(mem: list, src: int, dst: int, n: int, tile: int,
+                    writes: collections.Counter) -> None:
+    """``copy_pair_tile`` in the CUDA source: tile ``tile`` of one pair's
+    copy of ``n`` words from word address ``src`` to ``dst`` over the
+    word memory ``mem``, lane by lane: tile 0's scalar words,
+    ``copy_tile``'s vector loads, warp shuffles and stores. Checks that
+    every load and store lies inside the pair's words (16-byte ones
+    aligned) and counts each destination word written in ``writes``."""
+    unroll = _cu_constant("kLdstUnroll")
+    tile_vecs = 32 * unroll
     head, nvec, r = _interior_of(src, dst, n)
-    tiles = -(-(n // 4) // tile_vecs)
-    groups = -(-tiles // warps) if tiles else 1
-    writes = collections.Counter()
 
     def load(a, words=1):
         assert src <= a and a + words <= src + n, (a, words)
@@ -262,34 +261,48 @@ def _run_ldst_pair(mem: list, src: int, dst: int, n: int) -> dict:
         mem[a:a + len(vals)] = vals
         writes.update(range(a, a + len(vals)))
 
+    words = [n] * 32
+    if tile == 0:
+        words = [lane if lane < head else head + 4 * nvec + lane - head
+                 for lane in range(32)]
+    scalars = [load(src + w) if w < n else None for w in words]
+    first = tile * tile_vecs
+    if first < nvec:
+        s4, d4 = src + head - r + 4 * first, dst + head + 4 * first
+        left = nvec - first
+        outs = min(left, tile_vecs)
+        loads = outs if r == 0 else min(left, tile_vecs) + 1
+        cur = [[load(s4 + 4 * (u * 32 + lane), 4)
+                if u * 32 + lane < loads else [0] * 4
+                for u in range(unroll)] for lane in range(32)]
+        ext = load(s4 + 4 * tile_vecs, 4) if r and tile_vecs < loads \
+            else [0] * 4
+        for u in range(unroll):
+            give = [(cur[0][u + 1] if u + 1 < unroll else ext)
+                    if lane == 0 else cur[lane][u] for lane in range(32)]
+            for lane in range(32):
+                i = u * 32 + lane
+                out = cur[lane][u][r:] + give[(lane + 1) % 32][:r]
+                if i < outs:
+                    store(d4 + 4 * i, out)
+    for w, val in zip(words, scalars):
+        if w < n:
+            store(dst + w, val)
+
+
+def _run_ldst_pair(mem: list, src: int, dst: int, n: int) -> dict:
+    """One pair of ``ring_ldst_kernel`` over the word memory ``mem``:
+    every tile of the grid of ``launch_ldst``, each as
+    ``_copy_pair_tile``. Returns the number of writes to each
+    destination word and the head and tail."""
+    warps = _cu_constant("kLdstThreads") // 32
+    tile_vecs = 32 * _cu_constant("kLdstUnroll")
+    head, nvec, _ = _interior_of(src, dst, n)
+    tiles = -(-(n // 4) // tile_vecs)
+    groups = -(-tiles // warps) if tiles else 1
+    writes = collections.Counter()
     for tile in range(groups * warps):
-        words = [n] * 32
-        if tile == 0:
-            words = [lane if lane < head else head + 4 * nvec + lane - head
-                     for lane in range(32)]
-        scalars = [load(src + w) if w < n else None for w in words]
-        first = tile * tile_vecs
-        if first < nvec:
-            s4, d4 = src + head - r + 4 * first, dst + head + 4 * first
-            left = nvec - first
-            outs = min(left, tile_vecs)
-            loads = outs if r == 0 else min(left, tile_vecs) + 1
-            cur = [[load(s4 + 4 * (u * 32 + lane), 4)
-                    if u * 32 + lane < loads else [0] * 4
-                    for u in range(unroll)] for lane in range(32)]
-            ext = load(s4 + 4 * tile_vecs, 4) if r and tile_vecs < loads \
-                else [0] * 4
-            for u in range(unroll):
-                give = [(cur[0][u + 1] if u + 1 < unroll else ext)
-                        if lane == 0 else cur[lane][u] for lane in range(32)]
-                for lane in range(32):
-                    i = u * 32 + lane
-                    out = cur[lane][u][r:] + give[(lane + 1) % 32][:r]
-                    if i < outs:
-                        store(d4 + 4 * i, out)
-        for w, val in zip(words, scalars):
-            if w < n:
-                store(dst + w, val)
+        _copy_pair_tile(mem, src, dst, n, tile, writes)
     return {"writes": writes, "head": head, "tail": n - head - 4 * nvec}
 
 
@@ -311,3 +324,154 @@ def test_load_store_cut_covers_the_pair(src_off, dst_off):
         assert mem[dst:dst + n] == list(range(1000, 1000 + n)), n
         assert mem[:src] == [-1] * src and mem[dst + n:] == [-1] * 64, n
         assert got["head"] + got["tail"] <= 15, (n, got["head"], got["tail"])
+
+
+# -- the ragged all-to-all's grid, emulated -------------------------------
+
+RAGGED_FAULTS = (None, "scalar_pairs", "no_pair_tiles", "no_truncation")
+
+
+def _run_ragged(mem: list, data: int, out: int, mat, cap: int,
+                out_rows: int, w: int, fault=None) -> collections.Counter:
+    """``launch_ragged`` in the CUDA source over the word memory ``mem``
+    (``data [D, cap, w]`` at word address ``data``, ``out [D, out_rows,
+    w]`` at ``out``): ``ragged_book_kernel``'s counts, starts and lands,
+    then every warp tile of ``ragged_ldst_kernel``'s grid, which finds
+    its pair by the warp scan of 32 pairs' tile counts at a time and
+    copies it as ``_copy_pair_tile``. Returns the writes to each word.
+    ``fault`` plants a mistake: a pair of scalar words only given no
+    tile, a grid without its tile a pair, no clamp at ``out_rows``."""
+    d = len(mat)
+    warps = _cu_constant("kLdstThreads") // 32
+    tile_vecs = 32 * _cu_constant("kLdstUnroll")
+    counts = [[max(int(c), 0) for c in row] for row in mat]
+    starts = [list(itertools.accumulate([0] + row[:-1])) for row in counts]
+    lands = [[sum(counts[s][j] for s in range(i)) for j in range(d)]
+             for i in range(d)]
+    tiles_max = (cap * w // 4 + tile_vecs - 1) // tile_vecs
+    if fault != "no_pair_tiles":
+        tiles_max += d
+    groups = -(-tiles_max // warps)
+    writes = collections.Counter()
+    for i in range(d):
+        shard = data + i * cap * w
+        for tile in range(groups * warps):
+            before = 0
+            for j0 in range(0, d, 32):
+                lanes = []
+                for j in range(j0, j0 + 32):
+                    n = src_off = dst_off = tiles = 0
+                    if j < d:
+                        rows = min(counts[i][j], cap - starts[i][j])
+                        if fault != "no_truncation":
+                            rows = min(rows, out_rows - lands[i][j])
+                        if rows > 0:
+                            n, src_off = rows * w, starts[i][j] * w
+                            dst_off = (j * out_rows + lands[i][j]) * w
+                            nvec = _interior_of(shard + src_off,
+                                                out + dst_off, n)[1]
+                            tiles = -(-nvec // tile_vecs)
+                            if fault != "scalar_pairs":
+                                tiles = max(tiles, 1)
+                    lanes.append((n, src_off, dst_off, tiles))
+                incl = list(itertools.accumulate(t for *_, t in lanes))
+                if tile < before + incl[31]:
+                    owner = next(lane for lane in range(32)
+                                 if before + incl[lane] > tile)
+                    n, src_off, dst_off, tiles = lanes[owner]
+                    _copy_pair_tile(mem, shard + src_off, out + dst_off, n,
+                                    tile - before - (incl[owner] - tiles),
+                                    writes)
+                    break
+                before += incl[31]
+    return writes
+
+
+def _ragged_mats(rng, d: int, cap: int):
+    """Count matrices of the emulated cases: random rows, a zero row and
+    a zero column, one pair holding a source's every row, a pair of 0
+    rows beside full ones, and a receiver flooded past its capacity."""
+    rand = np.stack([rng.multinomial(rng.integers(0, cap + 1),
+                                     np.full(d, 1.0 / d)) for _ in range(d)])
+    zero = rand.copy()
+    zero[d // 2] = 0
+    zero[:, d - 1] = 0
+    whole = np.zeros((d, d), np.int64)
+    whole[:, (np.arange(d) + 1) % d] = np.eye(d, dtype=np.int64) * cap
+    flood = np.zeros((d, d), np.int64)
+    flood[:, 0] = cap
+    return {"random": rand, "zero_row_col": zero, "whole_pair": whole,
+            "flood": flood}
+
+
+def _ragged_case(d: int, cap: int, out_rows: int, w: int, mat,
+                 src_off: int, dst_off: int, fault=None) -> None:
+    """One emulated launch against ``ragged_all_to_all_plain``: each
+    output word written at most once (and those the plain version
+    writes, once each), the output equal to the plain version's,
+    nothing outside the output written."""
+    from sparkrdma_tpu_torch.ops.ragged_exchange import (
+        ragged_all_to_all_plain)
+
+    rng = np.random.default_rng(d * 1000 + cap * 10 + w)
+    src = rng.integers(-2**31, 2**31, (d, cap, w)).astype(np.int32)
+    init = rng.integers(-2**31, 2**31, (d, out_rows, w)).astype(np.int32)
+    data, out = 64 + src_off, 64 + (d * cap * w // 4 + 8) * 4 + dst_off
+    end = out + d * out_rows * w
+    mem = [-7] * (end + 64)
+    mem[data:data + src.size] = src.reshape(-1).tolist()
+    mem[out:end] = init.reshape(-1).tolist()
+    writes = _run_ragged(mem, data, out, mat, cap, out_rows, w, fault)
+    want = ragged_all_to_all_plain(
+        torch.from_numpy(src), torch.from_numpy(np.asarray(mat, np.int32)),
+        torch.from_numpy(init.copy())).numpy()
+    written = (want != init).reshape(-1)
+    assert mem[out:end] == want.reshape(-1).tolist()
+    assert all(out <= a < end for a in writes)
+    assert max(writes.values(), default=1) == 1
+    assert all(writes[out + k] for k in np.flatnonzero(written))
+    assert mem[:data] == [-7] * data and mem[end:] == [-7] * 64
+    assert mem[data:data + src.size] == src.reshape(-1).tolist()
+
+
+@pytest.mark.parametrize("src_off", range(4))
+@pytest.mark.parametrize("dst_off", range(4))
+def test_ragged_grid_covers_every_pair(src_off, dst_off):
+    """The ragged kernel's grid and pair search, emulated word by word
+    from the CUDA source's arithmetic with ``data`` and ``out``
+    ``src_off``/``dst_off`` words past a 16-byte boundary, at W = 1, 2,
+    3, 5, 25 (so the pairs' runs start at every offset 0-3 words on
+    both sides) and D = 8: zero rows and columns, a pair of every row,
+    a receiver flooded past its capacity (truncated), and a pair of 2
+    KB and more (several tiles)."""
+    d = 8
+    rng = np.random.default_rng(src_off * 4 + dst_off)
+    for w in (1, 2, 3, 5, 25):
+        cap = 48 if w == 25 else 40
+        for name, mat in _ragged_mats(rng, d, cap).items():
+            for out_rows in (cap, 2 * cap + 1):
+                _ragged_case(d, cap, out_rows, w, mat, src_off, dst_off)
+
+
+@pytest.mark.parametrize("d,cap,w", [(1, 9, 3), (3, 17, 5), (40, 6, 2)])
+def test_ragged_grid_other_shard_counts(d, cap, w):
+    """One shard, three, and forty (two rounds of the warp's 32-pair
+    scan)."""
+    rng = np.random.default_rng(d)
+    for name, mat in _ragged_mats(rng, d, cap).items():
+        _ragged_case(d, cap, cap, w, mat, 1, 3)
+
+
+@pytest.mark.parametrize("fault", RAGGED_FAULTS[1:])
+def test_ragged_emulation_catches_planted_faults(fault):
+    """Each planted mistake in the emulated kernel fails some case of
+    the emulation's own checks, so those checks can see such a fault."""
+    rng = np.random.default_rng(5)
+    failed = 0
+    for w in (1, 3, 25):
+        for name, mat in _ragged_mats(rng, 8, 40).items():
+            try:
+                _ragged_case(8, 40, 40, w, mat, 1, 2, fault)
+            except AssertionError:
+                failed += 1
+    assert failed > 0, fault

@@ -23,7 +23,7 @@ SKEW = tt.TpcdsConfig(fact_rows_per_device=256, dim1_size=50, dim2_size=80,
 TIGHT = tt.TpcdsConfig(fact_rows_per_device=256, dim1_size=8, dim2_size=50,
                        num_groups=16, zipf_a=1.01, out_factor=1)
 PAIRS = [("ring", "dense"), ("dense", "dense"), ("gather", "gather"),
-         ("ring", "gather")]
+         ("ring", "gather"), ("native", "gather")]
 
 
 @pytest.fixture(scope="module")

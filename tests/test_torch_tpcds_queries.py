@@ -24,7 +24,8 @@ Q95 = tq.Q95Config(ws_rows_per_device=768, num_orders=600, out_factor=3)
 Q64 = tq.Q64Config(ss_rows_per_device=640, cs_rows_per_device=512,
                    num_items=300, out_factor=4)
 Q95_SEED, Q64_SEED = 9, 13
-PAIRS = [("ring", "dense"), ("dense", "dense"), ("gather", "gather")]
+PAIRS = [("ring", "dense"), ("dense", "dense"), ("gather", "gather"),
+         ("native", "gather")]
 
 
 @pytest.fixture(scope="module")
