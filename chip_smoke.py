@@ -107,19 +107,24 @@ printing one JSON line; any failure raises and the exit code is not 0:
     still exact;
 14. multihost: the multi-process path (``parallel/multihost.py``) with two
     worker processes on the one card (this script under
-    ``--multihost-worker``), 4 shards each, a global mesh of 8 whose ring
-    exchange launches the kernel over each process's own shards and
-    writes through CUDA IPC peer pointers into the other's receive arena:
-    ``run_multihost_terasort`` at the main path's 1 GiB, each global
-    shard digest-equal to the single-process ``VirtualMesh(8)`` step over
-    the same rows; the mesh-service stage (phase 11's records, maps 0-3
-    written in worker 0, 4-7 in worker 1, the driver in worker 0) through
-    ``run_multihost_mesh_reduce`` one shot and in rounds, each partition
-    digest-equal to the oracle, the topology two slices and its
-    cross-slice bytes counted; the kernel's cross-process launches held
-    to the plain move and timed at every block shape they ran at, one
-    process at a time (the other waits at a barrier), into the peers'
-    arenas and into a local buffer;
+    ``--multihost-worker``), 4 shards each, a global mesh of 8 whose
+    exchange under ``impl="auto"`` (``native``) range-launches the ragged
+    kernel over each process's own shards, writing each pair's rows
+    through CUDA IPC peer pointers into the receiving process's arena:
+    ``run_multihost_terasort`` at the main path's 1 GiB under ``auto``
+    and under ``impl="ring"`` (the ring kernel's range launch into
+    per-pair slots) in turns (auto, ring, ring, auto), each global shard
+    of each run digest-equal to the single-process ``VirtualMesh(8)``
+    step over the same rows; the step
+    alone timed under both in turns and traced once each; the
+    mesh-service stage (phase 11's records, maps 0-3 written in worker 0,
+    4-7 in worker 1, the driver in worker 0) through
+    ``run_multihost_mesh_reduce`` one shot and in rounds under ``auto``,
+    each partition digest-equal to the oracle, the topology two slices
+    and its cross-slice bytes counted; each kernel's cross-process
+    launches held to its plain version over the global data and timed
+    at every shape they ran at, one process at a time (the other waits
+    at a barrier), into the peers' arenas and into a local buffer;
 15. cli_and_benches: the command line and the device benches.
     ``python -m sparkrdma_tpu_torch`` ``info`` (must name the card),
     ``config``, ``selftest``, ``engine-demo`` and ``rdd-demo`` as
@@ -159,9 +164,8 @@ printing one JSON line; any failure raises and the exit code is not 0:
     ``analysis/lockgraph_engine`` and held to the plain version at every
     block shape;
 17. the kernel table line (both kernels, each with the launches of the
-    paths that ran it: ``auto`` is the ragged kernel on one card and the
-    ring over the multihost phase's global mesh), then the device line
-    last.
+    paths that ran it: ``auto`` is the ragged kernel, on one card and
+    over the multihost phase's global mesh), then the device line last.
 """
 
 from __future__ import annotations
@@ -2324,6 +2328,86 @@ def _peer_shape_check(mesh, shape, seed: int) -> dict:
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
+def _peer_ragged_check(mesh, shape, seed: int) -> dict:
+    """The ragged kernel's cross-process launch at ``shape = (Dl, G, cap,
+    W, out_cap)`` against its plain version over the global data: every
+    process draws all ``G`` sources and the ``[G, G]`` random counts from
+    ``seed`` and sends its own through ``ragged_all_to_all_peers``; its
+    receivers must equal ``ragged_all_to_all_plain`` over all ``G``
+    sources, sliced to its shards. Then CUDA-event times of this
+    process's range launch into the peers' arenas (``ms``) and into a
+    local buffer (``local_dst_ms``: what the IPC mapping costs), of the
+    plain PyTorch slice copies of the same pairs into the local buffer,
+    the host's time per range launch (pointer table, scratch and launch,
+    without the fences), and the byte bound of the rows this process's
+    sources move (each read once and written once). The processes time
+    in turn, each while the others wait at a barrier."""
+    dl, g, cap, w, out_cap = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    glob = torch.randint(-2**31, 2**31 - 1, (g, cap, w), dtype=torch.int32,
+                         device="cuda", generator=gen)
+    mat = _native_counts("random", g, cap, seed)
+    lo = mesh.first_shard
+    mine = glob[lo:lo + dl].contiguous()
+    got = ragged_exchange.ragged_all_to_all_peers(
+        mine, mat, torch.zeros((dl, out_cap, w), dtype=torch.int32,
+                               device="cuda"), mesh)
+    want = ragged_exchange.ragged_all_to_all_plain(
+        glob, mat, torch.zeros((g, out_cap, w), dtype=torch.int32,
+                               device="cuda"))[lo:lo + dl]
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"ragged_all_to_all_peers != plain at {shape}")
+    del got, want, glob
+    m = mat.cpu().numpy().astype(np.int64)
+    starts = np.cumsum(m, axis=1) - m
+    lands = np.cumsum(m, axis=0) - m
+    pairs = []
+    for i in range(dl):
+        for j in range(g):
+            s = lo + i
+            rows = min(int(m[s, j]), cap - int(starts[s, j]),
+                       out_cap - int(lands[s, j]))
+            if rows > 0:
+                pairs.append((i, j, int(starts[s, j]), int(lands[s, j]),
+                              rows))
+    src, dst = ragged_exchange._ragged_peer_pointer_table(
+        mine, mesh.arena.bases, out_cap)
+    full = torch.empty((g, out_cap, w), dtype=torch.int32, device="cuda")
+    local_dst = [full[j].data_ptr() for j in range(g)]
+    book = ragged_exchange._book(g, mine.device)
+
+    def launch(bases):
+        return lambda: ragged_exchange._launch_range(mine, mat, book, src,
+                                                     bases, lo, out_cap)
+
+    def plain():
+        for i, j, start, land, rows in pairs:
+            full[j, land:land + rows].copy_(mine[i, start:start + rows])
+
+    def host_launch():
+        ragged_exchange._launch_range(
+            mine, mat, ragged_exchange._book(g, mine.device),
+            *ragged_exchange._ragged_peer_pointer_table(
+                mine, mesh.arena.bases, out_cap), lo, out_cap)
+
+    times = {}
+    for turn in range(mesh.num_processes):
+        if turn == mesh.rank:
+            times = {"ms": cuda_ms(launch(dst)),
+                     "local_dst_ms": cuda_ms(launch(local_dst)),
+                     "host_us_per_launch": _host_us_per_launch(host_launch),
+                     "plain_ms": cuda_ms(plain, repeats=3, per_repeat=2)}
+            torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+    rows = sum(p[4] for p in pairs)
+    moved = 2 * rows * w * 4
+    return {"shape": list(shape), "max_abs_err": err, "counts": "random",
+            "rows_moved": rows, "bytes_moved": moved, **times,
+            "library_ms": None, "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
 def multihost_worker(rank: int, port: str, work_dir: str) -> None:
     """One process of the ``multihost`` phase: prints one line
     ``MULTIHOST_WORKER {json}`` and exits 0, or raises."""
@@ -2334,30 +2418,68 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
     mesh = multihost.global_mesh("shuffle")
     dl, g = mesh.local_shards, mesh.num_shards
     report = {"rank": rank, "init_s": time.perf_counter() - t_start}
-    shapes_seen = {}
+    shapes_seen = {NATIVE: {}, RING: {}}
 
-    # TeraSort at the main path's size: this process's half of it
+    # TeraSort at the main path's size, this process's half of it: under
+    # auto (the ragged kernel's range launch) and under the ring, in turns
+    # (auto, ring, ring, auto: the first run also pays the arena's
+    # growth), each run's shards digest-checked
     rpd = DATA_BYTES // 100 // SHARDS
-    t0 = time.perf_counter()
-    (ts_out, ts_counts), launches, shapes = _launches(
-        "multihost/terasort", lambda: multihost.run_multihost_terasort(
-            mesh, "shuffle", rpd, payload_words=24, seed=0), RING)
-    wall = time.perf_counter() - t0
-    per = ts_out.reshape(dl, -1, ts_out.shape[-1])
-    digests, rows = [], 0
-    for d in range(dl):
-        total = int(ts_counts[d].sum())
-        keys = per[d][:total, 0]
-        if not (np.diff(keys.astype(np.int64)) >= 0).all():
-            raise AssertionError(f"process {rank} shard {d} unsorted")
-        digests.append(_digest(per[d][:total]))
-        rows += total
-    del ts_out, per
-    report["terasort"] = {"wall_s": wall, "rows": rows, "digests": digests,
-                          "kernel_launches": launches,
-                          "kernel_shapes": [[list(k), v]
-                                          for k, v in shapes.items()]}
-    shapes_seen.update(shapes)
+    report["terasort"] = {}
+    kernel_of = {"auto": ("multihost/terasort", NATIVE),
+                 "ring": ("multihost/terasort_ring", RING)}
+    for impl in ("auto", "ring", "ring", "auto"):
+        path, kernel = kernel_of[impl]
+        t0 = time.perf_counter()
+        (ts_out, ts_counts), launches, shapes = _launches(
+            path, lambda impl=impl: multihost.run_multihost_terasort(
+                mesh, "shuffle", rpd, payload_words=24, seed=0, impl=impl),
+            kernel)
+        wall = time.perf_counter() - t0
+        per = ts_out.reshape(dl, -1, ts_out.shape[-1])
+        digests, rows = [], 0
+        for d in range(dl):
+            total = int(ts_counts[d].sum())
+            keys = per[d][:total, 0]
+            if not (np.diff(keys.astype(np.int64)) >= 0).all():
+                raise AssertionError(f"process {rank} shard {d} unsorted "
+                                     f"({impl})")
+            digests.append(_digest(per[d][:total]))
+            rows += total
+        del ts_out, per
+        run = report["terasort"].setdefault(impl, {
+            "path": path, "kernel": kernel, "wall_s": [], "rows": rows,
+            "digests": digests, "kernel_launches": 0, "kernel_shapes": {}})
+        if digests != run["digests"]:
+            raise AssertionError(f"process {rank}: two TeraSort runs under "
+                                 f"{impl} differ")
+        run["wall_s"].append(wall)
+        run["kernel_launches"] += launches
+        for k, v in shapes.items():
+            run["kernel_shapes"][k] = run["kernel_shapes"].get(k, 0) + v
+        shapes_seen[kernel].update(shapes)
+    for run in report["terasort"].values():
+        run["kernel_shapes"] = [[list(k), v]
+                                for k, v in run["kernel_shapes"].items()]
+    # the step alone, both transports timed in turns (auto, ring, ring,
+    # auto), then one traced step of each
+    cfg = TeraSortConfig(rows_per_device=rpd, payload_words=24,
+                         out_factor=2)
+    rows_d = multihost.shard_local_rows(
+        mesh, "shuffle", generate_rows(cfg, dl, seed=rank), g * rpd)
+    steps = {impl: make_terasort_step(mesh, cfg, impl)
+             for impl in ("auto", "ring")}
+    samples = {impl: [] for impl in steps}
+    for impl in ("auto", "ring", "ring", "auto"):
+        samples[impl] += _host_times_ms(lambda: steps[impl](rows_d),
+                                        STEP_SAMPLES // 2)
+    report["terasort_steps"] = {impl: _timing(sorted(t))
+                                for impl, t in samples.items()}
+    report["terasort_profile"] = {
+        impl: _trace(lambda: step(rows_d), ("fused.", "exchange."))
+        for impl, step in steps.items()}
+    del rows_d, steps
+    torch.cuda.empty_cache()
 
     # the mesh-service stage as a two-process job
     conf = TpuShuffleConf(connect_timeout_ms=5000)
@@ -2406,7 +2528,7 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
                 f"multihost/mesh_{name}",
                 lambda kw=kw: multihost.run_multihost_mesh_reduce(
                     [ex.native], handle, mesh, out_factor=MS_OUT_FACTOR,
-                    **kw), RING)
+                    **kw), NATIVE)
             wall = time.perf_counter() - t0
             after = topology.cross_slice_snapshot()
             runs[name] = {
@@ -2415,7 +2537,7 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
                 "rows": int(sum(len(k) for k, _, _ in result)),
                 "cross_slice_bytes": after["bytes"] - before["bytes"],
                 "partition_digests": _partition_digests(result)}
-            shapes_seen.update(shapes)
+            shapes_seen[NATIVE].update(shapes)
             del result
         topo = topology.detect_topology(mesh)
         report["mesh"] = {"runs": runs, "slices": list(topo.slice_sizes),
@@ -2429,9 +2551,12 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
         ex.stop()
         if driver is not None:
             driver.stop()
+    report["ragged_checks"] = [
+        _peer_ragged_check(mesh, shape, 30 + i)
+        for i, shape in enumerate(sorted(shapes_seen[NATIVE]))]
     report["kernel_checks"] = [
-        _peer_shape_check(mesh, shape, 30 + i)
-        for i, shape in enumerate(sorted(shapes_seen))]
+        _peer_shape_check(mesh, shape, 50 + i)
+        for i, shape in enumerate(sorted(shapes_seen[RING]))]
     report["ipc"] = dict(ring_exchange.PEER)
     report["wall_s"] = time.perf_counter() - t_start
     multihost.shutdown_multihost()
@@ -2496,14 +2621,17 @@ def phase_multihost(table: dict, cfg: TeraSortConfig,
                                  f"{proc.returncode}):\n{text[-4000:]}")
         reports.append(json.loads(lines[-1][len("MULTIHOST_WORKER "):]))
 
-    got_ts = [dg for r in reports for dg in r["terasort"]["digests"]]
-    if got_ts != want_ts:
-        bad = [i for i, (a, b) in enumerate(zip(got_ts, want_ts)) if a != b]
-        raise AssertionError(f"multihost TeraSort shards {bad} differ from "
-                             "the single-process step")
-    ts_rows = sum(r["terasort"]["rows"] for r in reports)
-    if ts_rows != SHARDS * cfg.rows_per_device:
-        raise AssertionError(f"multihost TeraSort holds {ts_rows} rows")
+    for impl in ("auto", "ring"):
+        got_ts = [dg for r in reports for dg in r["terasort"][impl]["digests"]]
+        if got_ts != want_ts:
+            bad = [i for i, (a, b) in enumerate(zip(got_ts, want_ts))
+                   if a != b]
+            raise AssertionError(f"multihost TeraSort ({impl}) shards {bad} "
+                                 "differ from the single-process step")
+        ts_rows = sum(r["terasort"][impl]["rows"] for r in reports)
+        if ts_rows != SHARDS * cfg.rows_per_device:
+            raise AssertionError(f"multihost TeraSort ({impl}) holds "
+                                 f"{ts_rows} rows")
     for name in ("one_shot", "rounds"):
         got = {}
         for r in reports:
@@ -2529,60 +2657,75 @@ def phase_multihost(table: dict, cfg: TeraSortConfig,
         raise AssertionError("the global mesh's topology is not two slices")
 
     launches = {}
-    paths = {"multihost/terasort": lambda r: r["terasort"],
-             "multihost/mesh_one_shot": lambda r: r["mesh"]["runs"][
-                 "one_shot"],
-             "multihost/mesh_rounds": lambda r: r["mesh"]["runs"]["rounds"]}
-    by_shape = collections.defaultdict(dict)
-    for path, pick in paths.items():
-        KERNEL_OF_PATH[path] = RING      # auto over a GlobalMesh
+    # the kernel each path must have launched (each worker's _launches
+    # failed a path that ran the other): auto over the global mesh is the
+    # ragged kernel's range launch
+    paths = {"multihost/terasort": (NATIVE, lambda r: r["terasort"]["auto"]),
+             "multihost/terasort_ring": (RING,
+                                         lambda r: r["terasort"]["ring"]),
+             "multihost/mesh_one_shot": (NATIVE, lambda r: r["mesh"]["runs"][
+                 "one_shot"]),
+             "multihost/mesh_rounds": (NATIVE, lambda r: r["mesh"]["runs"][
+                 "rounds"])}
+    by_shape = {NATIVE: collections.defaultdict(dict),
+                RING: collections.defaultdict(dict)}
+    for path, (kernel, pick) in paths.items():
+        KERNEL_OF_PATH[path] = kernel
         launches[path] = sum(pick(r)["kernel_launches"] for r in reports)
         if launches[path] == 0:
-            raise AssertionError(f"the {path} path never launched the "
-                                 "kernel")
+            raise AssertionError(f"the {path} path never launched {kernel}")
         for r in reports:
             for shape, n in pick(r)["kernel_shapes"]:
-                entry = by_shape[tuple(shape)]
+                entry = by_shape[kernel][tuple(shape)]
                 entry[path] = entry.get(path, 0) + n
-    checks = {}
-    for r in reports:
-        for c in r["kernel_checks"]:
-            checks.setdefault(tuple(c["shape"]), []).append(c)
-    if set(checks) != set(by_shape):
-        raise AssertionError("a cross-process shape went unchecked")
-    for shape, per_proc in sorted(checks.items()):
-        err = max(c["max_abs_err"] for c in per_proc)
-        ring = table[RING]
-        ring["max_abs_err"] = max(ring["max_abs_err"], err)
-        ring["by_shape"].append({
-            "shape": list(shape), "processes": MH_PROCESSES,
-            "shared_card": True,
-            "bytes_moved": per_proc[0]["bytes_moved"],
-            "ms": max(c["ms"] for c in per_proc),
-            "plain_ms": max(c["plain_ms"] for c in per_proc),
-            "library_ms": max(c["library_ms"] for c in per_proc),
-            "local_dst_ms": max(c["local_dst_ms"] for c in per_proc),
-            "host_us_per_launch": max(c["host_us_per_launch"]
-                                      for c in per_proc),
-            "bound_ms": per_proc[0]["bound_ms"],
-            "ms_by_process": [c["ms"] for c in per_proc],
-            "max_abs_err": err, "launches_by_path": by_shape[shape]})
+    # per shape, the slowest process's time and the larger of the two
+    # processes' bytes and bound (the ring's are equal; each ragged
+    # launch moves its own sources' rows)
+    worst = ("ms", "plain_ms", "local_dst_ms", "host_us_per_launch",
+             "bytes_moved", "bound_ms")
+    for kernel, key in ((NATIVE, "ragged_checks"), (RING, "kernel_checks")):
+        checks = {}
+        for r in reports:
+            for c in r[key]:
+                checks.setdefault(tuple(c["shape"]), []).append(c)
+        if set(checks) != set(by_shape[kernel]):
+            raise AssertionError(f"a cross-process shape of {kernel} went "
+                                 "unchecked")
+        row = table[kernel]
+        for shape, per_proc in sorted(checks.items()):
+            err = max(c["max_abs_err"] for c in per_proc)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            entry = {"shape": list(shape), "processes": MH_PROCESSES,
+                     "shared_card": True,
+                     **{k: max(c[k] for c in per_proc) for k in worst},
+                     "library_ms": (None if kernel == NATIVE else
+                                    max(c["library_ms"] for c in per_proc)),
+                     "ms_by_process": [c["ms"] for c in per_proc],
+                     "bound_ms_by_process": [c["bound_ms"]
+                                             for c in per_proc],
+                     "max_abs_err": err,
+                     "launches_by_path": by_shape[kernel][shape]}
+            row["by_shape"].append(entry)
     emit({"phase": "multihost", "processes": MH_PROCESSES,
           "local_shards": MH_LOCAL_SHARDS, "wall_s": wall_s,
           "reference_s": reference_s, "terasort_exact": True,
-          "mesh_exact": True, "mesh_rounds": rounds,
-          "launches_by_path": launches,
+          "terasort_ring_exact": True, "mesh_exact": True,
+          "mesh_rounds": rounds, "launches_by_path": launches,
           "workers": [{
               "rank": r["rank"], "wall_s": r["wall_s"],
               "init_s": r["init_s"], "commit_s": r["commit_s"],
               "ipc": r["ipc"],
-              "terasort": {k: v for k, v in r["terasort"].items()
-                           if k != "digests"},
+              "terasort": {impl: {k: v for k, v in run.items()
+                                  if k != "digests"}
+                           for impl, run in r["terasort"].items()},
+              "terasort_steps": r["terasort_steps"],
+              "terasort_profile": r["terasort_profile"],
               "mesh": {name: {k: v for k, v in run.items()
                               if k != "partition_digests"}
                        for name, run in r["mesh"]["runs"].items()},
               "mesh_profile": {k: r["mesh_profile"][k] for k in (
-                  "wall_ms", "device_busy_ms", "idle_share")},
+                  "wall_ms", "device_busy_ms", "idle_share", "spans")},
+              "ragged_checks": r["ragged_checks"],
               "kernel_checks": r["kernel_checks"]} for r in reports]})
     return launches
 

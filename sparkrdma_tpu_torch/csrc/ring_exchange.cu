@@ -1,7 +1,7 @@
 // Ring all-to-all over the virtual mesh: the block transpose of the
 // per-shard send buffers, out[j, i] = blocks[i, j]; and the ragged
-// all-to-all (ragged_all_to_all_launch, its own section below), which
-// copies each pair with the same load/store body.
+// all-to-all (ragged_all_to_all_launch and its range form, their own
+// section below), which copies each pair with the same load/store body.
 //
 // Replaces sparkrdma_tpu/ops/ring_exchange.py::_ring_kernel (called by
 // ring_all_to_all_shard, the pl.pallas_call at ring_exchange.py:127). On
@@ -246,11 +246,11 @@ int launch(const void* bases, int num_dst, int src_begin, int num_src,
 // lax.ragged_all_to_all in ragged_exchange_shard
 // (sparkrdma_tpu/parallel/exchange.py:177-180): each (source i,
 // destination j) pair is one contiguous run of mat[i, j] rows, from row
-// start[i, j] of data[i] (start = the exclusive prefix of mat along j) to
-// row land[i, j] of out[j] (land = the exclusive prefix of mat[:, j] over
-// sources), with no slots, no padding and no pack. Rows at or past
-// out_rows are not written (the gather transport's truncation) and rows
-// of out past each receiver's total keep their values.
+// start[i, j] of source i (start = the exclusive prefix of mat along j)
+// to row land[i, j] of receiver j (land = the exclusive prefix of
+// mat[:, j] over all sources), with no slots, no padding and no pack.
+// Rows at or past out_rows are not written (the gather transport's
+// truncation) and rows of a receiver past its total keep their values.
 //
 // What bounds it: bytes, each copied row read once and written once, so
 // its least time is 2 * sum(rows) * W * 4 bytes over the memory rate.
@@ -258,12 +258,24 @@ int launch(const void* bases, int num_dst, int src_begin, int num_src,
 // ring's load/store body copies it (copy_pair_tile). The grid is sized
 // from the send ranges alone, never from the counts, so a launch reads
 // nothing on the host and can be captured in a CUDA graph:
-// (tile groups over a source's cap*W words plus one tile a pair, D
-// sources). A warp finds its pair by a warp scan of the D pairs' tile
-// counts, 32 pairs at a time, and copies that tile; a warp past its
+// (tile groups over a source's cap*W words plus one tile a pair, the
+// launch's sources). A warp finds its pair by a warp scan of the pairs'
+// tile counts, 32 pairs at a time, and copies that tile; a warp past its
 // source's last tile exits. ragged_book_kernel, one block launched
 // before it, turns the int32 counts into the int64 counts, starts and
 // lands the warps read.
+//
+// Like the ring, every launch is a range launch with its bases by value
+// (Bases, in the copy's parameters): sources [s0, s0 + S) of G, source k
+// at src[k], receiver j at dst[j]. The book always covers the whole
+// [G, G] matrix, so a land is the prefix over every source, local or
+// not. On one card s0 = 0, S = G = D and the bases are the shards of two
+// tensors
+// (ragged_all_to_all_launch); across processes each process launches
+// over its own sources and dst[j] is shard j's rows in the arena of the
+// process that holds it, opened from a CUDA IPC handle
+// (ragged_all_to_all_launch_range): each pair's rows are written once,
+// straight into the receiving process's memory.
 
 constexpr int kBookThreads = kMaxShards;
 
@@ -290,14 +302,17 @@ ragged_book_kernel(const int32_t* __restrict__ mat,
   }
 }
 
+// Lane l of a warp reads pair j0 + l's destination base from the
+// parameters, bases.dst[j0 + l]: d different words, once a warp. At
+// shapes of a few KB that costs less than loading the bases from a copy
+// that the book launch writes beside the counts.
 __global__ void __launch_bounds__(kLdstThreads)
-ragged_ldst_kernel(const int32_t* __restrict__ data,
-                   int32_t* __restrict__ out,
+ragged_ldst_kernel(const __grid_constant__ Bases bases,
                    const long long* __restrict__ book, int d,
-                   long long cap_rows, long long out_rows,
+                   int src_begin, long long cap_rows, long long out_rows,
                    long long row_words) {
   const int lane = static_cast<int>(threadIdx.x & 31);
-  const int src_shard = static_cast<int>(blockIdx.y);
+  const int src_shard = src_begin + static_cast<int>(blockIdx.y);
   const long long tile =
       static_cast<long long>(blockIdx.x) * kLdstWarps + threadIdx.x / 32;
   const long long dd = static_cast<long long>(d) * d;
@@ -305,12 +320,13 @@ ragged_ldst_kernel(const int32_t* __restrict__ data,
   const long long* starts = counts + dd;
   const long long* lands = counts + 2 * dd;
   const int32_t* shard =
-      data + static_cast<long long>(src_shard) * cap_rows * row_words;
+      reinterpret_cast<const int32_t*>(bases.src[blockIdx.y]);
   long long before = 0;  // tiles of the pairs of earlier rounds
   for (int j0 = 0; j0 < d; j0 += 32) {
-    // lane l takes pair j0 + l: its words, word offsets and tiles
+    // lane l takes pair j0 + l: its words, source offset, destination
+    // address and tiles
     const int j = j0 + lane;
-    long long n = 0, src_off = 0, dst_off = 0, tiles = 0;
+    long long n = 0, src_off = 0, dst = 0, tiles = 0;
     if (j < d) {
       const long long start = starts[j];
       const long long land = lands[j];
@@ -321,8 +337,10 @@ ragged_ldst_kernel(const int32_t* __restrict__ data,
       if (rows > 0) {
         n = rows * row_words;
         src_off = start * row_words;
-        dst_off = (static_cast<long long>(j) * out_rows + land) * row_words;
-        const Interior in = interior_of(shard + src_off, out + dst_off, n);
+        int32_t* to =
+            reinterpret_cast<int32_t*>(bases.dst[j]) + land * row_words;
+        dst = static_cast<long long>(reinterpret_cast<uintptr_t>(to));
+        const Interior in = interior_of(shard + src_off, to, n);
         tiles = in.nvec > 0 ? (in.nvec + kTileVecs - 1) / kTileVecs : 1;
       }
     }
@@ -339,19 +357,23 @@ ragged_ldst_kernel(const int32_t* __restrict__ data,
       const long long first = __shfl_sync(0xffffffffu, incl - tiles, owner);
       const long long pn = __shfl_sync(0xffffffffu, n, owner);
       const long long ps = __shfl_sync(0xffffffffu, src_off, owner);
-      const long long pd = __shfl_sync(0xffffffffu, dst_off, owner);
-      copy_pair_tile(shard + ps, out + pd, pn, tile - before - first, lane);
+      const long long pd = __shfl_sync(0xffffffffu, dst, owner);
+      copy_pair_tile(shard + ps,
+                     reinterpret_cast<int32_t*>(static_cast<uintptr_t>(pd)),
+                     pn, tile - before - first, lane);
       return;
     }
     before += total;
   }
 }
 
-int launch_ragged(const int32_t* data, int32_t* out, const int32_t* mat,
-                  long long* book, int d, long long cap_rows,
-                  long long out_rows, long long row_words,
+int launch_ragged(const Bases& bases, int num_dst, int src_begin,
+                  int num_src, const int32_t* mat, long long* book,
+                  long long cap_rows, long long out_rows, long long row_words,
                   cudaStream_t stream) {
-  if (d < 1 || d > kMaxShards || cap_rows < 1 || out_rows < 1 ||
+  if (num_dst < 1 || num_dst > kMaxShards || num_src < 1 ||
+      num_src > kMaxShards || src_begin < 0 ||
+      src_begin + num_src > num_dst || cap_rows < 1 || out_rows < 1 ||
       row_words < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -359,15 +381,15 @@ int launch_ragged(const int32_t* data, int32_t* out, const int32_t* mat,
   // pair of scalar words only: at most a source's cap*W/4 vectors over
   // kTileVecs, plus one a pair
   const long long tiles =
-      (cap_rows * row_words / 4 + kTileVecs - 1) / kTileVecs + d;
+      (cap_rows * row_words / 4 + kTileVecs - 1) / kTileVecs + num_dst;
   const long long groups = (tiles + kLdstWarps - 1) / kLdstWarps;
   if (groups > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  ragged_book_kernel<<<1, kBookThreads, 0, stream>>>(mat, book, d);
+  ragged_book_kernel<<<1, kBookThreads, 0, stream>>>(mat, book, num_dst);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(static_cast<unsigned>(groups), static_cast<unsigned>(d));
+  dim3 grid(static_cast<unsigned>(groups), static_cast<unsigned>(num_src));
   ragged_ldst_kernel<<<grid, kLdstThreads, 0, stream>>>(
-      data, out, book, d, cap_rows, out_rows, row_words);
+      bases, book, num_dst, src_begin, cap_rows, out_rows, row_words);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -397,22 +419,54 @@ extern "C" int ring_all_to_all_launch_range(const void* bases, int num_dst,
   return launch(bases, num_dst, src_begin, num_src, block_bytes, stream);
 }
 
-// The ragged all-to-all: data [D, cap_rows, row_words] and out [D,
-// out_rows, row_words] int32 (device), mat [D, D] int32 counts (device,
-// mat[i, j] rows from shard i to shard j; shard i's rows grouped by
-// destination), book a device scratch of 3*D*D long longs that the
-// launch fills before its copy reads it. Writes out in place. Two
-// launches on `stream`; returns the first error (0 = launched).
+// The ragged all-to-all on one card: data [D, cap_rows, row_words] and
+// out [D, out_rows, row_words] int32 (device), mat [D, D] int32 counts
+// (device, mat[i, j] rows from shard i to shard j; shard i's rows
+// grouped by destination), book a device scratch of 3*D*D long longs
+// that the launch fills before its copy reads it. Writes out in place.
+// The range launch over all D sources, with shard i's rows at data +
+// i*cap_rows*row_words and receiver j's at out + j*out_rows*row_words.
+// Two launches on `stream`; returns the first error (0 = launched).
 extern "C" int ragged_all_to_all_launch(const void* data, void* out,
                                         const void* mat, void* book,
                                         int num_shards, long long cap_rows,
                                         long long out_rows,
                                         long long row_words, void* stream) {
-  return launch_ragged(static_cast<const int32_t*>(data),
-                       static_cast<int32_t*>(out),
+  if (num_shards < 1 || num_shards > kMaxShards) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Bases bases = {};
+  const int32_t* src = static_cast<const int32_t*>(data);
+  int32_t* dst = static_cast<int32_t*>(out);
+  for (int i = 0; i < num_shards; ++i) {
+    bases.src[i] = static_cast<long long>(reinterpret_cast<uintptr_t>(
+        src + static_cast<long long>(i) * cap_rows * row_words));
+    bases.dst[i] = static_cast<long long>(reinterpret_cast<uintptr_t>(
+        dst + static_cast<long long>(i) * out_rows * row_words));
+  }
+  return launch_ragged(bases, num_shards, 0, num_shards,
                        static_cast<const int32_t*>(mat),
-                       static_cast<long long*>(book), num_shards, cap_rows,
-                       out_rows, row_words, static_cast<cudaStream_t>(stream));
+                       static_cast<long long*>(book), cap_rows, out_rows,
+                       row_words, static_cast<cudaStream_t>(stream));
+}
+
+// The ragged all-to-all over source shards [src_begin, src_begin +
+// num_src) of num_dst: bases holds num_src source bases (src[k] is shard
+// src_begin + k's cap_rows rows, grouped by destination) and num_dst
+// destination bases (dst[j] is receiver j's out_rows rows; it may lie in
+// a peer process's arena opened by ring_ipc_open); mat is the whole
+// [num_dst, num_dst] int32 count matrix (device) and book a device
+// scratch of 3*num_dst*num_dst long longs. Pair (i, j) lands
+// at dst[j] + land[i, j]*row_words words, land over all num_dst sources.
+// Otherwise as ragged_all_to_all_launch.
+extern "C" int ragged_all_to_all_launch_range(
+    const void* bases, int num_dst, int src_begin, int num_src,
+    const void* mat, void* book, long long cap_rows, long long out_rows,
+    long long row_words, void* stream) {
+  return launch_ragged(*static_cast<const Bases*>(bases), num_dst,
+                       src_begin, num_src, static_cast<const int32_t*>(mat),
+                       static_cast<long long*>(book), cap_rows, out_rows,
+                       row_words, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ring_all_to_all_max_shards() { return kMaxShards; }

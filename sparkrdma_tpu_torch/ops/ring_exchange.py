@@ -26,8 +26,9 @@ process (``PeerArena``), the peers' opened from CUDA IPC handles. That is
 the port's counterpart of the Pallas kernel's remote DMA into a
 neighbour's buffer. On the CPU it takes ``ring_all_to_all_peers_plain``,
 the same block moves done by the process group's ``all_to_all_single``.
-``PEER`` holds the IPC bookkeeping (arena growths, the seconds spent
-opening peers' handles).
+The ragged kernel's cross-process wrapper (``ops/ragged_exchange.py``)
+writes into the same arenas. ``PEER`` holds the IPC bookkeeping (arena
+growths, the seconds spent opening peers' handles).
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ PEER = {"arena_growths": 0, "ipc_opens": 0, "ipc_open_s": 0.0}
 _KERNEL = "ring_exchange"
 
 MAX_SHARDS = 128          # kMaxShards in csrc/ring_exchange.cu
-# csrc/ring_exchange.cu's extern "C" functions (ragged_all_to_all_launch
-# is ops/ragged_exchange.py's): name -> (argtypes, restype); a byte
+# csrc/ring_exchange.cu's extern "C" functions (the ragged_* launches
+# are ops/ragged_exchange.py's): name -> (argtypes, restype); a byte
 # buffer (c_char_p) stands for a void pointer
 _P = ctypes.POINTER
 SIGNATURES = {
@@ -61,6 +62,11 @@ SIGNATURES = {
         (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_longlong, ctypes.c_void_p), ctypes.c_int),
+    "ragged_all_to_all_launch_range": (
+        (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p),
+        ctypes.c_int),
     "ring_all_to_all_max_shards": ((), ctypes.c_int),
     "ring_all_to_all_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     "ring_ipc_handle_bytes": ((), ctypes.c_int),
@@ -131,17 +137,24 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def _fill_bases(src: Sequence[int], dst: Sequence[int]) -> _Bases:
+    """This thread's ``_Bases``, holding ``src`` and ``dst`` (the
+    launch copies it into the kernel's parameters)."""
+    bases = getattr(_per_thread, "bases", None)
+    if bases is None:
+        bases = _per_thread.bases = _Bases()
+    bases.src[:len(src)] = src
+    bases.dst[:len(dst)] = dst
+    return bases
+
+
 def _launch(blocks: torch.Tensor, src: Sequence[int], dst: Sequence[int],
             src_begin: Optional[int] = None) -> None:
     """One launch with the given bases: the full launch (``src_begin``
     None, ``len(src) == len(dst)``), or the range launch over sources
     ``[src_begin, src_begin + len(src))`` of ``len(dst)``."""
     lib = _library()
-    bases = getattr(_per_thread, "bases", None)
-    if bases is None:
-        bases = _per_thread.bases = _Bases()
-    bases.src[:len(src)] = src
-    bases.dst[:len(dst)] = dst
+    bases = _fill_bases(src, dst)
     block_bytes = blocks.shape[2] * blocks.shape[3] * blocks.element_size()
     # the current stream's raw handle, without the Stream object that
     # torch.cuda.current_stream builds (several µs a launch)

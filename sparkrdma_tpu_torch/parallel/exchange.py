@@ -28,18 +28,21 @@ Transports (``impl``):
   moves as one contiguous run of rows, with no slots and no pack. On one
   card (a ``VirtualMesh`` or a plain device) the hand-written ragged
   all-to-all kernel (``ops.ragged_exchange``) copies every pair in one
-  launch; over a ``GlobalMesh`` it is a ragged ``all_to_all_single`` over
-  the process group.
+  launch; over a ``GlobalMesh`` each process launches the same kernel's
+  range form over its own sources.
 
 Over a ``GlobalMesh`` (several processes, ``parallel/multihost.py``;
 ``ragged_exchange_global``) each process passes its own ``[Dl, cap,
 ...]`` shards and ``[Dl, G]`` counts; the ``[G, G]`` count matrix is
 all-gathered over the control group (or handed in by a caller that
-counted on the host), ``ring`` writes through CUDA IPC peer pointers into
-the other processes' receive arenas (``ops.ring_exchange.
-ring_all_to_all_peers``), and ``dense``, ``gather`` and ``native`` run the
-process group's collectives, which on ``cuda`` need a group whose backend
-takes cuda tensors (NCCL, one card per rank).
+counted on the host). ``native`` (``auto`` on ``cuda``) and ``ring``
+write through CUDA IPC peer pointers into the other processes' receive
+arenas (``ops.ragged_exchange.ragged_all_to_all_peers``,
+``ops.ring_exchange.ring_all_to_all_peers``), so their rows stay on the
+card whether the processes share one card or not; ``dense`` and
+``gather`` run the process group's collectives, which on ``cuda`` need a
+group whose backend takes cuda tensors (NCCL, one card per rank). On the
+CPU every transport runs over the gloo group.
 
 The chunked exchange (``chunked_exchange`` and its builders, at the end)
 moves arbitrarily skewed traffic in bounded rounds of at most ``quota``
@@ -50,6 +53,7 @@ second call site.
 from __future__ import annotations
 
 import functools
+import math
 import threading
 from typing import List, Optional, Tuple
 
@@ -59,7 +63,10 @@ from torch.profiler import record_function
 
 import torch.distributed as dist
 
-from sparkrdma_tpu_torch.ops.ragged_exchange import ragged_all_to_all
+from sparkrdma_tpu_torch.ops.ragged_exchange import (
+    ragged_all_to_all,
+    ragged_all_to_all_peers,
+)
 from sparkrdma_tpu_torch.ops.ring_exchange import (
     ring_all_to_all,
     ring_all_to_all_peers,
@@ -153,33 +160,33 @@ def _pack_by_source(blocks: torch.Tensor, recv_counts: torch.Tensor,
 
 def resolve_impl(device, impl: str = "auto") -> str:
     """``auto`` -> ``native`` on ``cuda`` and ``gather`` on the CPU, as the
-    JAX package resolves ``auto`` to ``native`` on a TPU mesh and to
-    ``gather`` off it. ``device`` is a ``torch.device``, a ``VirtualMesh``
-    or a ``GlobalMesh``.
+    JAX package resolves ``auto`` to ``native`` on a TPU mesh (one
+    process or several) and to ``gather`` off it. ``device`` is a
+    ``torch.device``, a ``VirtualMesh`` or a ``GlobalMesh``.
 
-    On one card ``native`` is the ragged all-to-all kernel, which moves
-    each pair's rows once and needs no slot; ``ring`` (the slot layout
-    and the ring kernel) stays an explicit ask. Over a ``GlobalMesh`` on
-    ``cuda``, ``auto`` is ``ring``, whose kernel writes through CUDA IPC
-    peer pointers; ``dense``, ``gather`` and ``native`` there move device
-    rows with the process group's collectives, so they raise where the
-    mesh has no group whose backend takes cuda tensors: rows never
-    detour through host memory in the kernel's place."""
+    ``native`` is the ragged all-to-all kernel, which moves each pair's
+    rows once and needs no slot: in one launch on one card, and over a
+    ``GlobalMesh`` as each process's range launch writing through CUDA
+    IPC peer pointers. ``ring`` (the slot layout and the ring kernel)
+    stays an explicit ask. Over a ``GlobalMesh`` on ``cuda``, ``dense``
+    and ``gather`` move device rows with the process group's collectives,
+    so they raise where the mesh has no group whose backend takes cuda
+    tensors: rows never detour through host memory in a kernel's
+    place."""
     if impl != "auto" and impl not in TRANSPORTS:
         raise ValueError(f"unknown exchange impl {impl!r}")
     dev = torch.device(getattr(device, "device", device))
     if impl == "auto":
-        if dev.type != "cuda":
-            return "gather"
-        return "ring" if isinstance(device, GlobalMesh) else "native"
-    if (isinstance(device, GlobalMesh) and impl != "ring"
+        return "native" if dev.type == "cuda" else "gather"
+    if (isinstance(device, GlobalMesh) and impl in ("dense", "gather")
             and device.data_group is None):
         raise RuntimeError(
             f"impl={impl!r} moves {dev.type} rows with the process group's "
             "collectives, and this mesh has no group whose backend takes "
             f"{dev.type} tensors (the control group is gloo; NCCL needs "
             "one card per rank, and these ranks share one); use "
-            "impl='ring', which writes through CUDA IPC peer pointers")
+            "impl='native' or impl='ring', which write through CUDA IPC "
+            "peer pointers")
     return impl
 
 
@@ -369,51 +376,23 @@ def global_slot_rows(mat: np.ndarray, out_capacity: int,
     return even if top <= even else min(capacity, bucket_quota(top))
 
 
-def _native_global(mesh: GlobalMesh, data: torch.Tensor, mat: np.ndarray,
+def _native_global(mesh: GlobalMesh, data: torch.Tensor, mat: torch.Tensor,
                    output: torch.Tensor) -> torch.Tensor:
-    """``lax.ragged_all_to_all``'s counterpart: one ``all_to_all_single``
-    with split sizes over the mesh's data group. The send side is this
-    process's rows grouped by destination process (each source shard's
-    segment for that process's shards is contiguous); the receive side
-    arrives (source process, source shard, receiver) major and is
-    regrouped per receiver by source, rows past each total taken from
-    ``output``."""
-    p, dl, g = mesh.num_processes, mesh.local_shards, mesh.num_shards
-    lo = mesh.first_shard
-    cap, out_cap = data.shape[1], output.shape[1]
-    mine = mat[lo:lo + dl]                               # [Dl src, G dst]
-    starts = np.cumsum(mine, axis=1) - mine
-    send_idx, in_splits = [], []
-    for q in range(p):
-        n = 0
-        for d in range(dl):
-            k = int(mine[d, q * dl:(q + 1) * dl].sum())
-            first = d * cap + int(starts[d, q * dl])
-            send_idx.append(np.arange(first, first + k))
-            n += k
-        in_splits.append(n)
-    to_me = mat[:, lo:lo + dl]                           # [G src, Dl dst]
-    out_splits = [int(to_me[q * dl:(q + 1) * dl].sum()) for q in range(p)]
-    dev = data.device
-    flat = data.reshape((dl * cap,) + data.shape[2:])
-    send = flat.index_select(0, torch.from_numpy(
-        np.concatenate(send_idx).astype(np.int64)).to(dev))
-    recv = torch.empty((sum(out_splits),) + data.shape[2:],
-                       dtype=data.dtype, device=dev)
-    dist.all_to_all_single(recv, send, out_splits, in_splits,
-                           group=mesh.data_group)
-    # block (source i, receiver e) sits at the (i, e)-major prefix sum
-    block_off = (np.cumsum(to_me.reshape(-1)) - to_me.reshape(-1)).reshape(
-        g, dl)
-    received = output.clone()
-    for e in range(dl):
-        idx = np.concatenate([np.arange(block_off[i, e],
-                                        block_off[i, e] + to_me[i, e])
-                              for i in range(g)])[:out_cap]
-        if len(idx):
-            received[e, :len(idx)] = recv.index_select(
-                0, torch.from_numpy(idx.astype(np.int64)).to(dev))
-    return received
+    """``lax.ragged_all_to_all`` across processes: every pair's rows moved
+    once, as int32 words, by ``ragged_all_to_all_peers`` (the ragged
+    kernel's range launch into every process's arena on ``cuda``, its
+    plain version on the CPU), into ``output`` (a contiguous copy of it
+    if it is not contiguous), which is returned. Collective, so it
+    returns early on no process."""
+    out = output if output.is_contiguous() else output.contiguous()
+    dl, cap, out_cap = data.shape[0], data.shape[1], out.shape[1]
+    row_bytes = math.prod(data.shape[2:]) * data.element_size()
+    words = data.contiguous().view(torch.uint8).reshape(
+        dl, cap, row_bytes).view(torch.int32)
+    ragged_all_to_all_peers(words, mat.contiguous(), out.view(
+        torch.uint8).reshape(dl, out_cap, row_bytes).view(torch.int32),
+        mesh)
+    return out
 
 
 def ragged_exchange_global(mesh: GlobalMesh, data: torch.Tensor,
@@ -453,26 +432,32 @@ def ragged_exchange_global(mesh: GlobalMesh, data: torch.Tensor,
     q = max(1, slot_rows or global_slot_rows(mat_host, output.shape[1],
                                              data.shape[1]))
     if impl in ("ring", "dense"):
-        send, _, _, _ = _slot_fill(data, _exclusive_cumsum(
-            mat[lo:lo + dl], dim=1), mat[lo:lo + dl], g, q)
+        with record_function("exchange.slot_fill"):
+            send, _, _, _ = _slot_fill(data, _exclusive_cumsum(
+                mat[lo:lo + dl], dim=1), mat[lo:lo + dl], g, q)
         blocks = send.reshape((dl, g, q) + data.shape[2:])
-        if impl == "ring":
-            words = blocks.contiguous().reshape(dl, g, q, -1).view(
-                torch.int32)
-            got = ring_all_to_all_peers(words, mesh).view(
-                blocks.dtype).reshape(blocks.shape)
-        else:
-            got = ring_all_to_all_peers_plain(blocks, mesh.data_group,
-                                              mesh.num_processes)
-        received = _pack_by_source(got, torch.clamp(recv_true, max=q),
-                                   output)
+        with record_function("exchange.transport"):
+            if impl == "ring":
+                words = blocks.contiguous().reshape(dl, g, q, -1).view(
+                    torch.int32)
+                got = ring_all_to_all_peers(words, mesh).view(
+                    blocks.dtype).reshape(blocks.shape)
+            else:
+                got = ring_all_to_all_peers_plain(blocks, mesh.data_group,
+                                                  mesh.num_processes)
+        with record_function("exchange.pack"):
+            received = _pack_by_source(got, torch.clamp(recv_true, max=q),
+                                       output)
         pair_overflow = (recv_true > q).any(dim=1)
     elif impl == "gather":
-        parts = [torch.empty_like(data) for _ in range(mesh.num_processes)]
-        dist.all_gather(parts, data.contiguous(), group=mesh.data_group)
-        received = _gather_exchange(torch.cat(parts), mat, output, lo)
+        with record_function("exchange.transport"):
+            parts = [torch.empty_like(data)
+                     for _ in range(mesh.num_processes)]
+            dist.all_gather(parts, data.contiguous(), group=mesh.data_group)
+            received = _gather_exchange(torch.cat(parts), mat, output, lo)
     else:
-        received = _native_global(mesh, data, mat_host, output)
+        with record_function("exchange.transport"):
+            received = _native_global(mesh, data, mat, output)
     overflowed = pair_overflow | (recv_true.sum(dim=1) > output.shape[1])
     return (received, recv_true.contiguous(),
             _exclusive_cumsum(recv_true, dim=1).to(torch.int32),

@@ -10,13 +10,15 @@ group:
 * **control plane**: a gloo group carries the metadata all-gathers, the
   barriers and the CUDA IPC handles;
 * **data plane**: the exchange of ``parallel.exchange`` over the global
-  mesh. On ``cuda`` its ``ring`` transport (``auto``) launches the ring
-  kernel over each process's own shards, writing through CUDA IPC peer
-  pointers into the other processes' receive arenas, so rows stay on the
-  card; the same code runs across the cards of one node. ``native``,
-  ``dense`` and ``gather`` use the process group's collectives and need a
-  group whose backend takes the mesh's tensors (gloo on the CPU, NCCL
-  with one card per rank).
+  mesh. On ``cuda`` its ``native`` transport (``auto``, as in the JAX
+  package) launches the ragged all-to-all kernel's range form over each
+  process's own shards, writing each pair's rows once through CUDA IPC
+  peer pointers into the receiving process's arena, so rows stay on the
+  card; ``ring`` does the same with the ring kernel and per-pair slots;
+  the same code runs across the cards of one node. ``dense`` and
+  ``gather`` use the process group's collectives and need a group whose
+  backend takes the mesh's tensors (gloo on the CPU, NCCL with one card
+  per rank).
 
 For tests and for one card, several processes share a device: each holds
 ``local_device_count`` virtual shards of it.

@@ -22,3 +22,16 @@ def table(m):
     rng = np.random.default_rng(1000 + m)
     return (rng.integers(0, 100000, ROWS).astype(np.uint64),
             rng.integers(0, 255, (ROWS, PAYLOAD)).astype(np.uint8))
+
+
+def skewed_inputs():
+    """Rows and destinations like ``exchange_inputs`` whose skew the
+    slot-free transports must carry: 40% of every source's rows go to
+    shard 0, so its receive passes ``CAP * OUT_FACTOR`` (truncated) and
+    its pairs pass the even share ``CAP * OUT_FACTOR // G``."""
+    rng = np.random.default_rng(12)
+    data = rng.integers(0, 2**32, (G, CAP, W), dtype=np.uint32)
+    p = np.full(G + 1, 0.6 / G)
+    p[1] = 0.4
+    dest = (rng.choice(G + 1, size=(G, CAP), p=p) - 1).astype(np.int32)
+    return data, dest

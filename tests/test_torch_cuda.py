@@ -9,7 +9,9 @@ pinned staging, the round and hierarchical drivers, and a mesh-mode
 engine job; the ragged all-to-all kernel (the ``native`` transport)
 against its plain version and the ``gather`` transport, inside guard
 words, at every alignment, at the shard limit and replayed in a CUDA
-graph. Marked ``cuda``; each skips with a reason where there is no
+graph, its range launches from a later source into one local tensor,
+and its cross-process exchange in two processes sharing the card.
+Marked ``cuda``; each skips with a reason where there is no
 card. This file imports no JAX, so it runs on a
 machine without it:
 
@@ -846,3 +848,133 @@ def test_native_exchange_keeps_the_caller_output_storage(cuda):
                                    impl="native")[0]
     assert got.data_ptr() != strided.data_ptr() and not strided.any()
     assert torch.equal(got, out)
+
+
+@pytest.mark.parametrize("d,cap,w,out_cap,src_off,dst_off",
+                         [(8, 1000, 25, 2000, 0, 0), (6, 37, 3, 40, 1, 3),
+                          (5, 9, 1, 9, 2, 1)])
+def test_ragged_range_launches_make_the_full_launch(cuda, d, cap, w,
+                                                    out_cap, src_off,
+                                                    dst_off):
+    """Range launches over sources ``[0, 2)`` and ``[2, d)`` (the second
+    with ``src_begin > 0``), their destination bases the shards of one
+    guarded local tensor, equal the plain version over all ``d``
+    sources: the lands are summed over every source, not the launch's."""
+    flat = _blocks((4 + d * cap * w,), d, cuda)
+    pad = (-flat.data_ptr() // 4) % 4
+    data = flat[pad + src_off:pad + src_off + d * cap * w].view(d, cap, w)
+    for kind in ("random", "skewed", "flood", "holes"):
+        mat = _ragged_counts(kind, d, cap, cap + w)
+        m = torch.from_numpy(mat).to(cuda)
+        buf, lo, out = _guarded((d, out_cap, w), dst_off, cuda)
+        src = [data.data_ptr() + i * cap * w * 4 for i in range(d)]
+        dst = [out.data_ptr() + j * out_cap * w * 4 for j in range(d)]
+        before = rex.LAUNCHES
+        for s0, s1 in ((0, 2), (2, d)):
+            rex._launch_range(data[s0:s1], m, rex._book(d, cuda),
+                              src[s0:s1], dst, s0, out_cap)
+        torch.cuda.synchronize()
+        assert rex.LAUNCHES == before    # only the wrappers count
+        want = rex.ragged_all_to_all_plain(
+            data.cpu(), m.cpu(), torch.zeros((d, out_cap, w),
+                                             dtype=torch.int32))
+        assert torch.equal(out.cpu(), want), kind
+        n = out.numel()
+        assert (buf[:lo] == SENTINEL).all()
+        assert (buf[lo + n:] == SENTINEL).all()
+
+
+_NATIVE_IPC_WORKER = r'''
+import sys
+import numpy as np
+import torch
+from sparkrdma_tpu_torch.ops import ragged_exchange as rex
+from sparkrdma_tpu_torch.ops import ring_exchange as tre
+from sparkrdma_tpu_torch.parallel import exchange, multihost
+pid, port = int(sys.argv[1]), sys.argv[2]
+multihost.init_multihost(f"127.0.0.1:{port}", 2, pid, local_device_count=4,
+                         platform="cuda")
+mesh = multihost.global_mesh()
+assert exchange.resolve_impl(mesh, "auto") == "native"
+lo = pid * 4
+for cap, w, out_cap in ((1000, 25, 2000), (7, 3, 5), (64, 1, 200)):
+    rng = np.random.default_rng(cap + w)
+    glob = torch.from_numpy(rng.integers(-2**31, 2**31, (8, cap, w))
+                            .astype(np.int32)).to(mesh.device)
+    mat = np.stack([rng.multinomial(rng.integers(0, cap + 1),
+                                    np.full(8, 1 / 8)) for _ in range(8)])
+    m = torch.from_numpy(mat.astype(np.int32)).to(mesh.device)
+    filler = torch.from_numpy(rng.integers(-2**31, 2**31, (8, out_cap, w))
+                              .astype(np.int32)).to(mesh.device)
+    out = filler[lo:lo + 4].clone()
+    got = rex.ragged_all_to_all_peers(glob[lo:lo + 4].contiguous(), m, out,
+                                      mesh)
+    want = rex.ragged_all_to_all_plain(glob, m, filler.clone())
+    torch.cuda.synchronize()
+    assert got is out and torch.equal(got, want[lo:lo + 4]), (cap, w)
+    # a ring exchange through the same arena, then native again: no
+    # stale word of the other transport shows
+    blocks = torch.from_numpy(rng.integers(-2**31, 2**31, (8, 8, 3, w))
+                              .astype(np.int32)).to(mesh.device)
+    ring = tre.ring_all_to_all_peers(blocks[lo:lo + 4].contiguous(),
+                                     mesh).clone()
+    assert torch.equal(ring, tre.ring_all_to_all_plain(blocks)[lo:lo + 4])
+    again = rex.ragged_all_to_all_peers(glob[lo:lo + 4].contiguous(), m,
+                                        filler[lo:lo + 4].clone(), mesh)
+    assert torch.equal(again, want[lo:lo + 4]), (cap, w)
+assert rex.LAUNCHES == 6 and tre.LAUNCHES == 3, (rex.LAUNCHES, tre.LAUNCHES)
+assert set(rex.SHAPES) == {(4, 8, 1000, 25, 2000), (4, 8, 7, 3, 5),
+                           (4, 8, 64, 1, 200)}
+# the global exchange under auto: native, no row through a collective
+def refused(*args, **kwargs):
+    raise AssertionError("rows went through all_to_all_single")
+torch.distributed.all_to_all_single = refused
+dest = torch.from_numpy(np.random.default_rng(5).integers(
+    0, 8, (4, 300)).astype(np.int32)).to(mesh.device)
+rows = torch.arange(4 * 300 * 3, dtype=torch.int32,
+                    device=mesh.device).reshape(4, 300, 3) + lo * 900
+ex = exchange.make_shuffle_exchange(mesh, "auto", 2)
+received, counts, _, overflowed = ex(rows, dest)
+assert not overflowed.any() and rex.LAUNCHES == 7
+d_np = dest.cpu().numpy()        # the same on both processes (one seed)
+for e in range(4):
+    want = np.concatenate([
+        ((s // 4) * 3600 + (s % 4) * 900
+         + np.arange(900).reshape(300, 3))[d_np[s % 4] == lo + e]
+        for s in range(8)])
+    assert int(counts[e].sum()) == len(want)
+    assert np.array_equal(received[e, :len(want)].cpu().numpy(), want), e
+multihost.shutdown_multihost()
+print("NATIVE_IPC_OK", pid, flush=True)
+'''
+
+
+def test_two_process_native_exchange_on_card(cuda):
+    """Two processes share the card, 4 shards each: each range-launches
+    the ragged kernel over its own sources into both arenas, and each
+    process's ``output`` equals the plain version over the global data
+    for its shards (rows past each total kept, a receive truncated at
+    ``out_cap``), also after a ring exchange through the same arena;
+    ``auto`` over the global mesh is ``native``."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen([sys.executable, "-c", _NATIVE_IPC_WORKER,
+                               str(i), port], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env, cwd=root)
+             for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=180)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for i, out in enumerate(outs):
+        assert f"NATIVE_IPC_OK {i}" in out, out[-3000:]

@@ -4,7 +4,9 @@ form a global mesh of 8 over a gloo group.
 
 One pair of port processes and one pair of JAX processes run every check
 once per module (``reports``): the global-mesh exchange for each transport
-(``ring`` is the plain cross-process move, an ``all_to_all_single``), the
+(``ring`` and ``native`` are their plain cross-process moves, each an
+``all_to_all_single``), and ``gather`` and ``native`` again on skewed
+traffic whose receive is truncated at its capacity, the
 multi-process TeraSort, the mesh reduce of committed spills one shot and in
 rounds, an unstaged map, and the topology. The tests hold their results
 byte for byte against the JAX package on the conftest's 8-device CPU mesh
@@ -32,11 +34,14 @@ from sparkrdma_tpu_torch.parallel.mesh import GlobalMesh, VirtualMesh
 
 from multihost_inputs import (
     CAP, DL, G, MAPS, OUT_FACTOR, PARTS, ROWS, TS_ROWS, TS_SEED, TS_WORDS,
-    W, exchange_inputs, table)
+    W, exchange_inputs, skewed_inputs, table)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(ROOT, "tests")
 IMPLS = ("gather", "dense", "ring", "native")
+# the transports without pair slots, which carry any skew exactly up to
+# the receive capacity
+SLOT_FREE = ("gather", "native")
 # the JAX transport each port transport is held to: XLA:CPU has no
 # ragged all-to-all, so native is held to gather
 JAX_IMPL = {"gather": "gather", "dense": "dense", "ring": "ring_interpret",
@@ -82,7 +87,7 @@ pid, port, out_dir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 sys.path[:0] = [{ROOT!r}, {TESTS!r}]
 from multihost_inputs import (
     CAP, DL, G, MAPS, OUT_FACTOR, PARTS, PAYLOAD, ROUND_ROWS,
-    TS_ROWS, TS_SEED, TS_WORDS, exchange_inputs, table)
+    TS_ROWS, TS_SEED, TS_WORDS, exchange_inputs, skewed_inputs, table)
 from sparkrdma_tpu_torch.config import TpuShuffleConf
 from sparkrdma_tpu_torch.parallel import exchange, multihost, topology
 from sparkrdma_tpu_torch.shuffle.fetcher import FetchFailedError
@@ -103,6 +108,13 @@ for impl in {IMPLS!r}:
              torch.from_numpy(dest[lo:lo + DL]))
     for name, t in zip(("received", "counts", "offsets", "overflowed"), got):
         out[f"x_{{impl}}_{{name}}"] = t.numpy()
+data, dest = skewed_inputs()
+for impl in {SLOT_FREE!r}:
+    ex = exchange.make_shuffle_exchange(mesh, impl, OUT_FACTOR)
+    got = ex(torch.from_numpy(data[lo:lo + DL].view(np.int32)),
+             torch.from_numpy(dest[lo:lo + DL]))
+    for name, t in zip(("received", "counts", "offsets", "overflowed"), got):
+        out[f"s_{{impl}}_{{name}}"] = t.numpy()
 
 # 2. TeraSort
 ts_out, ts_counts = multihost.run_multihost_terasort(
@@ -260,6 +272,34 @@ def test_global_exchange_matches_jax(reports, jax_mesh, impl):
                     rep[f"x_{impl}_{name}"].shape), err_msg=name)
 
 
+@pytest.mark.parametrize("impl", SLOT_FREE)
+def test_global_exchange_truncates_like_jax(reports, jax_mesh, impl):
+    """Skewed traffic: one receiver's total passes the receive capacity
+    (truncated, flagged) and its pairs pass the even share; the port's
+    slot-free transports over the global mesh give JAX ``gather``'s
+    bytes, counts and flags."""
+    data, dest = skewed_inputs()
+    counts = np.stack([np.bincount(d[d >= 0], minlength=G) for d in dest])
+    out_cap = CAP * OUT_FACTOR
+    assert counts.sum(axis=0).max() > out_cap
+    assert counts.max() > out_cap // G
+    ex = make_shuffle_exchange(jax_mesh, "shuffle", impl="gather",
+                               out_factor=OUT_FACTOR)
+    want = [np.asarray(a) for a in ex(_sharded(jax_mesh, data.reshape(
+        G * CAP, W)), _sharded(jax_mesh, dest.reshape(-1)))]
+    assert want[3].any()
+    for pid, rep in enumerate(reports["port"]):
+        lo = pid * DL
+        got = rep[f"s_{impl}_received"].view(np.uint32)
+        np.testing.assert_array_equal(
+            got, want[0].reshape(G, out_cap, W)[lo:lo + DL])
+        for name, w in zip(("counts", "offsets", "overflowed"), want[1:]):
+            np.testing.assert_array_equal(
+                rep[f"s_{impl}_{name}"],
+                w.reshape(G, -1)[lo:lo + DL].reshape(
+                    rep[f"s_{impl}_{name}"].shape), err_msg=name)
+
+
 def test_terasort_matches_jax(reports, jax_mesh):
     cfg = JaxTeraSortConfig(rows_per_device=TS_ROWS, payload_words=TS_WORDS,
                             out_factor=2)
@@ -366,17 +406,20 @@ def test_global_mesh_shards_and_hash():
 
 
 def test_transport_refusals():
-    """``native`` is a transport of one card too; on a card whose ranks
-    share it the collective transports raise and name why, and ``auto``
-    over the GlobalMesh is the ring."""
+    """``auto`` over a GlobalMesh on a card is ``native`` (the ragged
+    kernel's range launch through CUDA IPC peer pointers), and ``native``
+    and ``ring`` resolve on a card whose ranks share it; the collective
+    transports raise there and name why."""
     assert tx.resolve_impl(VirtualMesh(G, "cpu"), "native") == "native"
     card = _fake_mesh("cuda")
-    for impl in ("dense", "gather", "native"):
+    assert tx.resolve_impl(card, "auto") == "native"
+    assert tx.resolve_impl(card, "native") == "native"
+    assert tx.resolve_transport(card, "ring") == "ring"
+    for impl in ("dense", "gather"):
         with pytest.raises(RuntimeError, match="CUDA IPC"):
             tx.resolve_impl(card, impl)
-    assert tx.resolve_impl(card, "auto") == "ring"
     assert tx.resolve_impl(_fake_mesh("cuda", data_group=object()),
-                           "native") == "native"
+                           "gather") == "gather"
     assert tx.resolve_impl(_fake_mesh("cpu", data_group=object()),
                            "auto") == "gather"
 

@@ -208,15 +208,17 @@ def test_wrapper_refuses_other_devices():
 
 
 def test_auto_resolves_as_the_jax_package_on_its_chip():
-    """``auto`` is ``native`` on a card and ``gather`` on the CPU; over a
-    ``GlobalMesh`` on a card it stays ``ring``; ``ring`` passes through
-    ``resolve_transport`` as an explicit ask."""
+    """``auto`` is ``native`` on a card and ``gather`` on the CPU, over a
+    ``GlobalMesh`` on a card too (its range launch into the peers'
+    arenas); ``ring`` passes through ``resolve_transport`` as an explicit
+    ask."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert tx.resolve_impl(cuda, "auto") == "native"
     assert tx.resolve_impl(cpu, "auto") == "gather"
     assert tx.resolve_impl(VirtualMesh(D, "cpu"), "native") == "native"
     card = GlobalMesh(2, D // 2, 0, cuda, group=None, data_group=None)
-    assert tx.resolve_impl(card, "auto") == "ring"
+    assert tx.resolve_impl(card, "auto") == "native"
+    assert tx.resolve_transport(card, "auto") == "native"
     assert tx.resolve_transport(card, "ring") == "ring"
     assert tx.resolve_transport(cuda, "auto") == "native"
 

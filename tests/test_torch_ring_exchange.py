@@ -205,7 +205,7 @@ def test_launch_argtypes_match_the_source(name):
     CUDA source with its parameters' count and C types and its return
     type: without ``nvcc`` here a mismatch would show only on the card,
     as garbage arguments."""
-    assert len(_EXPORTED) == 11 and set(tre.SIGNATURES) == set(_EXPORTED)
+    assert len(_EXPORTED) == 12 and set(tre.SIGNATURES) == set(_EXPORTED)
     ret, params = _EXPORTED[name]
     decls = [p for p in params.split(",") if p.strip() and p.strip() != "void"]
     argtypes, restype = tre.SIGNATURES[name]
@@ -328,58 +328,66 @@ def test_load_store_cut_covers_the_pair(src_off, dst_off):
 
 # -- the ragged all-to-all's grid, emulated -------------------------------
 
-RAGGED_FAULTS = (None, "scalar_pairs", "no_pair_tiles", "no_truncation")
+RAGGED_FAULTS = (None, "scalar_pairs", "no_pair_tiles", "no_truncation",
+                 "local_lands")
 
 
-def _run_ragged(mem: list, data: int, out: int, mat, cap: int,
-                out_rows: int, w: int, fault=None) -> collections.Counter:
-    """``launch_ragged`` in the CUDA source over the word memory ``mem``
-    (``data [D, cap, w]`` at word address ``data``, ``out [D, out_rows,
-    w]`` at ``out``): ``ragged_book_kernel``'s counts, starts and lands,
-    then every warp tile of ``ragged_ldst_kernel``'s grid, which finds
-    its pair by the warp scan of 32 pairs' tile counts at a time and
-    copies it as ``_copy_pair_tile``. Returns the writes to each word.
+def _run_ragged(mem: list, src_bases, dst_bases, src_begin: int, mat,
+                cap: int, out_rows: int, w: int,
+                fault=None) -> collections.Counter:
+    """``launch_ragged`` in the CUDA source over the word memory ``mem``:
+    the range launch over sources ``[src_begin, src_begin +
+    len(src_bases))`` of ``G = len(dst_bases)``, source ``k``'s ``cap``
+    rows of ``w`` words at word address ``src_bases[k]`` and receiver
+    ``j``'s ``out_rows`` rows at ``dst_bases[j]``.
+    ``ragged_book_kernel``'s counts, starts and lands over the whole
+    ``[G, G]`` matrix, then every warp tile of ``ragged_ldst_kernel``'s
+    grid (tile groups, the launch's sources): warp ``y`` reads book row
+    ``src_begin + y``, finds its pair by the warp scan of 32 pairs' tile
+    counts at a time and copies it as ``_copy_pair_tile`` to
+    ``dst_bases[j] + land * w``. Returns the writes to each word.
     ``fault`` plants a mistake: a pair of scalar words only given no
-    tile, a grid without its tile a pair, no clamp at ``out_rows``."""
-    d = len(mat)
+    tile, a grid without its tile a pair, no clamp at ``out_rows``, lands
+    summed over the launch's own sources only."""
+    g = len(mat)
     warps = _cu_constant("kLdstThreads") // 32
     tile_vecs = 32 * _cu_constant("kLdstUnroll")
     counts = [[max(int(c), 0) for c in row] for row in mat]
     starts = [list(itertools.accumulate([0] + row[:-1])) for row in counts]
-    lands = [[sum(counts[s][j] for s in range(i)) for j in range(d)]
-             for i in range(d)]
+    first = src_begin if fault == "local_lands" else 0
+    lands = [[sum(counts[s][j] for s in range(first, i)) for j in range(g)]
+             for i in range(g)]
     tiles_max = (cap * w // 4 + tile_vecs - 1) // tile_vecs
     if fault != "no_pair_tiles":
-        tiles_max += d
+        tiles_max += g
     groups = -(-tiles_max // warps)
     writes = collections.Counter()
-    for i in range(d):
-        shard = data + i * cap * w
+    for y, shard in enumerate(src_bases):
+        i = src_begin + y
         for tile in range(groups * warps):
             before = 0
-            for j0 in range(0, d, 32):
+            for j0 in range(0, g, 32):
                 lanes = []
                 for j in range(j0, j0 + 32):
-                    n = src_off = dst_off = tiles = 0
-                    if j < d:
+                    n = src_off = dst = tiles = 0
+                    if j < g:
                         rows = min(counts[i][j], cap - starts[i][j])
                         if fault != "no_truncation":
                             rows = min(rows, out_rows - lands[i][j])
                         if rows > 0:
                             n, src_off = rows * w, starts[i][j] * w
-                            dst_off = (j * out_rows + lands[i][j]) * w
-                            nvec = _interior_of(shard + src_off,
-                                                out + dst_off, n)[1]
+                            dst = dst_bases[j] + lands[i][j] * w
+                            nvec = _interior_of(shard + src_off, dst, n)[1]
                             tiles = -(-nvec // tile_vecs)
                             if fault != "scalar_pairs":
                                 tiles = max(tiles, 1)
-                    lanes.append((n, src_off, dst_off, tiles))
+                    lanes.append((n, src_off, dst, tiles))
                 incl = list(itertools.accumulate(t for *_, t in lanes))
                 if tile < before + incl[31]:
                     owner = next(lane for lane in range(32)
                                  if before + incl[lane] > tile)
-                    n, src_off, dst_off, tiles = lanes[owner]
-                    _copy_pair_tile(mem, shard + src_off, out + dst_off, n,
+                    n, src_off, dst, tiles = lanes[owner]
+                    _copy_pair_tile(mem, shard + src_off, dst, n,
                                     tile - before - (incl[owner] - tiles),
                                     writes)
                     break
@@ -405,33 +413,57 @@ def _ragged_mats(rng, d: int, cap: int):
 
 
 def _ragged_case(d: int, cap: int, out_rows: int, w: int, mat,
-                 src_off: int, dst_off: int, fault=None) -> None:
-    """One emulated launch against ``ragged_all_to_all_plain``: each
-    output word written at most once (and those the plain version
-    writes, once each), the output equal to the plain version's,
-    nothing outside the output written."""
+                 src_off: int, dst_off: int, fault=None,
+                 procs: int = 1) -> None:
+    """One emulated exchange against ``ragged_all_to_all_plain`` over the
+    ``d`` global sources: ``procs`` processes of ``d // procs`` shards,
+    each with its sources and its receive arena in a region of one flat
+    word memory (sources ``src_off`` and arenas ``dst_off`` words past a
+    16-byte boundary, guard words between), each making its range launch
+    with every arena's shards as destination bases (``procs = 1``: the
+    one-card launch). Each arena word written at most once (and those the
+    plain version writes, once each), every arena equal to the plain
+    version's rows for its shards, nothing outside the arenas written."""
     from sparkrdma_tpu_torch.ops.ragged_exchange import (
         ragged_all_to_all_plain)
 
+    dl = d // procs
     rng = np.random.default_rng(d * 1000 + cap * 10 + w)
     src = rng.integers(-2**31, 2**31, (d, cap, w)).astype(np.int32)
     init = rng.integers(-2**31, 2**31, (d, out_rows, w)).astype(np.int32)
-    data, out = 64 + src_off, 64 + (d * cap * w // 4 + 8) * 4 + dst_off
-    end = out + d * out_rows * w
-    mem = [-7] * (end + 64)
-    mem[data:data + src.size] = src.reshape(-1).tolist()
-    mem[out:end] = init.reshape(-1).tolist()
-    writes = _run_ragged(mem, data, out, mat, cap, out_rows, w, fault)
+    addr, datas, outs = 64, [], []
+    for regions, off, rows in ((datas, src_off, cap),
+                               (outs, dst_off, out_rows)):
+        for _ in range(procs):
+            regions.append(addr + off)
+            addr = -(-(addr + off + dl * rows * w) // 4) * 4 + 64
+    mem = [-7] * addr
+    span = dl * out_rows * w
+    for p in range(procs):
+        part = slice(p * dl, (p + 1) * dl)
+        mem[datas[p]:datas[p] + dl * cap * w] = src[part].reshape(-1).tolist()
+        mem[outs[p]:outs[p] + span] = init[part].reshape(-1).tolist()
+    before = list(mem)
+    dst_bases = [outs[j // dl] + (j % dl) * out_rows * w for j in range(d)]
+    writes = collections.Counter()
+    for p in range(procs):
+        src_bases = [datas[p] + i * cap * w for i in range(dl)]
+        writes.update(_run_ragged(mem, src_bases, dst_bases, p * dl, mat,
+                                  cap, out_rows, w, fault))
     want = ragged_all_to_all_plain(
         torch.from_numpy(src), torch.from_numpy(np.asarray(mat, np.int32)),
         torch.from_numpy(init.copy())).numpy()
-    written = (want != init).reshape(-1)
-    assert mem[out:end] == want.reshape(-1).tolist()
-    assert all(out <= a < end for a in writes)
+    arena = set()
+    for p in range(procs):
+        part = slice(p * dl, (p + 1) * dl)
+        assert mem[outs[p]:outs[p] + span] == want[part].reshape(-1).tolist()
+        arena.update(range(outs[p], outs[p] + span))
+        written = (want[part] != init[part]).reshape(-1)
+        assert all(writes[outs[p] + k] for k in np.flatnonzero(written))
+    assert all(a in arena for a in writes)
     assert max(writes.values(), default=1) == 1
-    assert all(writes[out + k] for k in np.flatnonzero(written))
-    assert mem[:data] == [-7] * data and mem[end:] == [-7] * 64
-    assert mem[data:data + src.size] == src.reshape(-1).tolist()
+    assert all(mem[a] == before[a] for a in range(len(mem))
+               if a not in arena)
 
 
 @pytest.mark.parametrize("src_off", range(4))
@@ -462,16 +494,86 @@ def test_ragged_grid_other_shard_counts(d, cap, w):
         _ragged_case(d, cap, cap, w, mat, 1, 3)
 
 
+@pytest.mark.parametrize("procs", [1, 2, 3])
+@pytest.mark.parametrize("dl", [1, 2, 4])
+def test_ragged_range_launches_make_the_global_exchange(procs, dl):
+    """The range form across processes: ``procs`` processes of ``dl``
+    shards, each launching over its own sources with every process's
+    arena shards as destination bases, together write what the plain
+    version gives over the global data, at W = 1, 3, 25, source and
+    arena offsets of 0-3 words, under every count pattern and a receive
+    capacity at and past the send capacity."""
+    d = procs * dl
+    rng = np.random.default_rng(procs * 10 + dl)
+    for w, (src_off, dst_off) in zip((1, 3, 25, 3), ((0, 0), (1, 3), (3, 2),
+                                                      (2, 1))):
+        cap = 20 if w == 25 else 13
+        for name, mat in _ragged_mats(rng, d, cap).items():
+            for out_rows in (cap, 2 * cap + 1):
+                _ragged_case(d, cap, out_rows, w, mat, src_off, dst_off,
+                             procs=procs)
+
+
 @pytest.mark.parametrize("fault", RAGGED_FAULTS[1:])
 def test_ragged_emulation_catches_planted_faults(fault):
     """Each planted mistake in the emulated kernel fails some case of
-    the emulation's own checks, so those checks can see such a fault."""
+    the emulation's own checks, one card or two processes, so those
+    checks can see such a fault."""
     rng = np.random.default_rng(5)
     failed = 0
     for w in (1, 3, 25):
         for name, mat in _ragged_mats(rng, 8, 40).items():
-            try:
-                _ragged_case(8, 40, 40, w, mat, 1, 2, fault)
-            except AssertionError:
-                failed += 1
+            for procs in (1, 2):
+                try:
+                    _ragged_case(8, 40, 40, w, mat, 1, 2, fault, procs)
+                except AssertionError:
+                    failed += 1
     assert failed > 0, fault
+
+
+def test_ragged_peer_pointer_table():
+    """Each process's table (its ``Dl`` source bases, ``cap*W*4`` bytes
+    apart, and every process's arena shard, ``out_cap*W*4`` bytes apart,
+    as a destination base), read back through ``ctypes``; driven as the
+    range launch drives it (pair ``(i, j)`` at its land over all
+    sources), every arena holds the plain version of the global data."""
+    from sparkrdma_tpu_torch.ops import ragged_exchange as rex
+
+    procs, dl, cap, out_cap, w = 3, 2, 5, 7, 3
+    g = procs * dl
+    rng = np.random.default_rng(3)
+    glob = torch.from_numpy(rng.integers(-2**31, 2**31, (g, cap, w))
+                            .astype(np.int32))
+    mat = np.stack([rng.multinomial(rng.integers(0, cap + 1),
+                                    np.full(g, 1.0 / g)) for _ in range(g)])
+    arenas = [torch.zeros((dl, out_cap, w), dtype=torch.int32)
+              for _ in range(procs)]
+    starts = np.cumsum(mat, axis=1) - mat
+    lands = np.cumsum(mat, axis=0) - mat
+    row = w * 4
+    for rank in range(procs):
+        mine = glob[rank * dl:(rank + 1) * dl].contiguous()
+        src, dst = rex._ragged_peer_pointer_table(
+            mine, [a.data_ptr() for a in arenas], out_cap)
+        assert src == [mine.data_ptr() + i * cap * row for i in range(dl)]
+        assert dst == [arenas[j // dl].data_ptr() + (j % dl) * out_cap * row
+                       for j in range(g)]
+        for i in range(dl):
+            assert ctypes.string_at(src[i], cap * row) == \
+                mine[i].numpy().tobytes()
+            s = rank * dl + i
+            for j in range(g):
+                land, start = int(lands[s, j]), int(starts[s, j])
+                rows = min(int(mat[s, j]), out_cap - land)
+                if rows > 0:
+                    ctypes.memmove(dst[j] + land * row, src[i] + start * row,
+                                   rows * row)
+    want = rex.ragged_all_to_all_plain(
+        glob, torch.from_numpy(mat.astype(np.int32)),
+        torch.zeros((g, out_cap, w), dtype=torch.int32))
+    for rank, arena in enumerate(arenas):
+        assert torch.equal(arena, want[rank * dl:(rank + 1) * dl]), rank
+    big = torch.zeros((2, 1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"at most {tre.MAX_SHARDS} shards"):
+        rex._ragged_peer_pointer_table(big, [0] * (tre.MAX_SHARDS // 2 + 1),
+                                       1)
