@@ -122,10 +122,47 @@ HUNKS = {
         '    "mesh.pack",\n'
         '    "mesh.partition",\n'
         '    "mesh.unpack",\n'
+        "    # and its step spans (utils/trace.span): the device plane's\n"
+        "    # layers, the row gather, the exchange's phases and each\n"
+        "    # model's rounds, which the benchmark's readers select on\n"
+        '    "als.group",\n'
+        '    "als.solve",\n'
+        '    "chunked.land",\n'
+        '    "chunked.pack",\n'
+        '    "chunked.slot_fill",\n'
+        '    "chunked.transport",\n'
+        '    "exchange.group",\n'
+        '    "exchange.pack",\n'
+        '    "exchange.receive_fill",\n'
+        '    "exchange.slot_fill",\n'
+        '    "exchange.transport",\n'
+        '    "fused.counts",\n'
+        '    "fused.local_sort",\n'
+        '    "fused.receive_sort",\n'
+        '    "join.exchange",\n'
+        '    "join.merge",\n'
+        '    "mesh.take_rows",\n'
+        '    "pagerank.contrib",\n'
+        '    "pagerank.exchange",\n'
+        '    "pagerank.sum",\n'
+        '    "q64.by_item",\n'
+        '    "q64.catalog_group",\n'
+        '    "q64.catalog_join",\n'
+        '    "q64.date_join",\n'
+        '    "q64.store_join",\n'
+        '    "q95.addr",\n'
+        '    "q95.aggregate",\n'
+        '    "q95.aggregate.sort",\n'
+        '    "q95.by_order",\n'
+        '    "q95.date",\n'
+        '    "q95.site",\n'
+        '    "tpcds.aggregate",\n'
+        '    "tpcds.join1",\n'
+        '    "tpcds.join2",\n'
         "})\n",
-        "names the port's host drivers and mesh service emit that the "
-        "reference lacks: the drift pass holds every emitted span to "
-        "this registry"),
+        "names the port's host drivers, mesh service and step paths emit "
+        "that the reference lacks: the drift pass holds every emitted span "
+        "to this registry"),
     ],
     "analysis/concurrency.py": [(
         '    "sparkrdma_tpu_torch/utils/trace.py",\n]\n',

@@ -31,13 +31,13 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from sparkrdma_tpu_torch.parallel.exchange import (
     chunked_exchange_resident,
     group_by_destination,
 )
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+from sparkrdma_tpu_torch.utils import trace as trace_mod
 from sparkrdma_tpu_torch.utils.u32 import rows_from_numpy, to_u64
 
 _SOLVE_CHUNK = 1 << 20
@@ -135,7 +135,7 @@ def exchange_ratings(mesh: VirtualMesh,
     n = mesh.num_shards
     rows = (ratings if isinstance(ratings, torch.Tensor)
             else rows_from_numpy(ratings, mesh))
-    with record_function("als.group"):
+    with trace_mod.span("als.group"):
         grouped, counts = group_by_destination(
             rows, to_u64(rows[..., key_col]) % n, n)
         counts = counts.cpu().numpy()  # the host driver sizes the rounds
@@ -161,7 +161,7 @@ def als_half_step(mesh: VirtualMesh, cfg: ALSConfig,
         user_factors, dtype=np.float32)).to(mesh.device)
     factors = torch.zeros((num_out, cfg.rank), dtype=torch.float32,
                           device=mesh.device)
-    with record_function("als.solve"):
+    with trace_mod.span("als.solve"):
         for rows in received:
             if not rows.shape[0]:
                 continue

@@ -22,7 +22,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from sparkrdma_tpu_torch.ops.partition import hash_partition
 from sparkrdma_tpu_torch.parallel.exchange import (
@@ -30,6 +29,7 @@ from sparkrdma_tpu_torch.parallel.exchange import (
     shuffle_shard,
 )
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+from sparkrdma_tpu_torch.utils import trace as trace_mod
 from sparkrdma_tpu_torch.utils.u32 import SENTINEL, rows_from_numpy, to_u64
 
 PAD = SENTINEL  # the padding key 0xFFFFFFFF
@@ -72,10 +72,10 @@ def make_join_step(mesh: VirtualMesh, cfg: JoinConfig, impl: str = "auto"):
         return sorted_keys, measures, overflowed
 
     def step(left: torch.Tensor, right: torch.Tensor):
-        with record_function("join.exchange"):
+        with trace_mod.span("join.exchange"):
             lk, lv, lof = exchange_side(left)
             rk, rv, rof = exchange_side(right)
-        with record_function("join.merge"):
+        with trace_mod.span("join.merge"):
             # right-side prefix sums of measures for O(1) range sums
             rpref = torch.nn.functional.pad(torch.cumsum(rv, dim=1), (1, 0))
             lo = torch.searchsorted(rk, lk, side="left")

@@ -25,7 +25,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from sparkrdma_tpu_torch.parallel.exchange import (
     resolve_transport,
@@ -33,6 +32,7 @@ from sparkrdma_tpu_torch.parallel.exchange import (
     spread_index,
 )
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+from sparkrdma_tpu_torch.utils import trace as trace_mod
 from sparkrdma_tpu_torch.utils.u32 import (
     rows_from_numpy,
     shards_from_numpy,
@@ -69,7 +69,7 @@ def make_pagerank_step(mesh: VirtualMesh, cfg: PageRankConfig,
         first = torch.arange(n, device=dev)[:, None] * v_local
         src, dst = edges[..., 0], edges[..., 1]
         valid = src >= 0
-        with record_function("pagerank.contrib"):
+        with trace_mod.span("pagerank.contrib"):
             src_local = torch.where(valid, src - first, 0)
             contrib = torch.where(
                 valid, ranks.gather(1, src_local)
@@ -80,10 +80,10 @@ def make_pagerank_step(mesh: VirtualMesh, cfg: PageRankConfig,
                                                 rounding_mode="floor"), -1)
         output = torch.zeros((n, edges.shape[1] * cfg.out_factor, 2),
                              dtype=torch.int32, device=dev)
-        with record_function("pagerank.exchange"):
+        with trace_mod.span("pagerank.exchange"):
             received, recv_counts, _, overflowed = shuffle_shard(
                 rows, dest, output=output, impl=impl)
-        with record_function("pagerank.sum"):
+        with trace_mod.span("pagerank.sum"):
             total = recv_counts.sum(dim=1, keepdim=True)
             rvalid = torch.arange(received.shape[1], device=dev) < total
             # shard d's local vertex i sits at d*V/D + i of the flat

@@ -30,7 +30,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from sparkrdma_tpu_torch.ops.partition import hash_partition
 from sparkrdma_tpu_torch.parallel.exchange import (
@@ -39,6 +38,7 @@ from sparkrdma_tpu_torch.parallel.exchange import (
     spread_index,
 )
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+from sparkrdma_tpu_torch.utils import trace as trace_mod
 from sparkrdma_tpu_torch.utils.u32 import (
     MASK,
     SENTINEL,
@@ -140,7 +140,7 @@ def make_tpcds_step(mesh: VirtualMesh, cfg: TpcdsConfig, impl: str = "auto"):
 
     def step(fact: torch.Tensor, dim1: torch.Tensor, dim2: torch.Tensor):
         cap = fact.shape[1] * cfg.out_factor
-        with record_function("tpcds.join1"):
+        with trace_mod.span("tpcds.join1"):
             # shuffles 1+2: dim1 and fact to hash(key1) owners
             d1, d1_valid, of1 = exchange(dim1, route(dim1, 0),
                                          dim1.shape[1] * cfg.out_factor)
@@ -153,7 +153,7 @@ def make_tpcds_step(mesh: VirtualMesh, cfg: TpcdsConfig, impl: str = "auto"):
             mid = torch.stack([torch.where(live1, to_u64(f1[..., 1]),
                                            SENTINEL), key1, value1], dim=-1)
             mid = to_bits(mid)
-        with record_function("tpcds.join2"):
+        with trace_mod.span("tpcds.join2"):
             # shuffles 3+4: dim2 and the survivors to hash(key2) owners
             d2, d2_valid, of3 = exchange(dim2, route(dim2, 0),
                                          dim2.shape[1] * cfg.out_factor)
@@ -163,7 +163,7 @@ def make_tpcds_step(mesh: VirtualMesh, cfg: TpcdsConfig, impl: str = "auto"):
             live2 = m2_valid & found2
             value = ((to_u64(m2[..., 2]) + attr2) & MASK) % _MOD
             group = _mix_group(to_u64(m2[..., 1]), key2, groups)
-        with record_function("tpcds.aggregate"):
+        with trace_mod.span("tpcds.aggregate"):
             # shuffle 5: joined rows to their group's owner (g % D)
             rows3 = to_bits(torch.stack(
                 [torch.where(live2, group, SENTINEL), value], dim=-1))

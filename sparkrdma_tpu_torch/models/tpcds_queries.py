@@ -54,7 +54,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from sparkrdma_tpu_torch.ops.partition import hash_partition
 from sparkrdma_tpu_torch.parallel.device_plane import stage_to_device
@@ -63,6 +62,7 @@ from sparkrdma_tpu_torch.parallel.exchange import (
     shuffle_shard,
 )
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh, take_rows
+from sparkrdma_tpu_torch.utils import trace as trace_mod
 from sparkrdma_tpu_torch.utils.u32 import MASK, SENTINEL, to_bits, to_u64
 
 PAD = np.uint32(0xFFFFFFFF)
@@ -93,8 +93,9 @@ def _exchange(rows, dest, capacity: int, impl: str):
     receive capacity; returns (received, valid [D, capacity],
     overflowed [D])."""
     n = rows.shape[0]
-    output = torch.zeros((n, capacity, rows.shape[2]), dtype=rows.dtype,
-                         device=rows.device)
+    with trace_mod.span("exchange.receive_fill"):
+        output = torch.zeros((n, capacity, rows.shape[2]), dtype=rows.dtype,
+                             device=rows.device)
     received, recv_counts, _, overflowed = shuffle_shard(
         rows, dest, output=output, impl=impl)
     valid = (torch.arange(capacity, device=rows.device)
@@ -140,7 +141,10 @@ def _sort_by(keys, rows):
         _, idx = torch.sort(k if perm is None else k.gather(1, perm), dim=1,
                             stable=True)
         perm = idx if perm is None else perm.gather(1, idx)
-    return keys[0].gather(1, perm), take_rows(rows, perm)
+    # the row gather first: a span around this sort then ends on a kernel
+    # of its own, so its device range covers the ``mesh.take_rows`` one
+    sorted_rows = take_rows(rows, perm)
+    return keys[0].gather(1, perm), sorted_rows
 
 
 class _Segments:
@@ -318,29 +322,32 @@ def make_q95_step(mesh: VirtualMesh, cfg: Q95Config, impl: str = "auto"):
         # working rows: [order, wh, date, addr, site, cost, profit, flags]
         rows = torch.cat([ws, torch.zeros_like(ws[..., :1])], dim=2)
         valid = _all(rows)
-        with record_function("q95.date"):
+        with trace_mod.span("q95.date"):
             rows, valid, of1 = dim_round(rows, valid, 2, date, 1,
                                          lambda d: (d >= lo) & (d < hi))
-        with record_function("q95.addr"):
+        with trace_mod.span("q95.addr"):
             rows, valid, of2 = dim_round(
                 rows, valid, 3, addr, 2, lambda s: s == cfg.target_state)
-        with record_function("q95.site"):
+        with trace_mod.span("q95.site"):
             rows, valid, of3 = dim_round(
                 rows, valid, 4, site, 4, lambda c: c == cfg.target_company)
-        with record_function("q95.by_order"):
+        with trace_mod.span("q95.by_order"):
             # round 4: co-locate by order_number (fact AND returns)
             rows, valid, of4 = _exchange(
                 rows, _route(rows[..., 0], valid, n), cap, impl)
             wr_recv, wr_valid, of5 = _exchange(
                 wr, _route(wr[..., 0], _all(wr), n),
                 _dim_cap(wr.shape[1], n), impl)
-        with record_function("q95.aggregate"):
+        with trace_mod.span("q95.aggregate"):
             # per-order reductions over rows sorted by (order, warehouse):
             # an order ships from more than one warehouse when the
-            # warehouse changes inside its run
-            o_s, r_s = _sort_by(
-                (torch.where(valid, to_u64(rows[..., 0]), SENTINEL),
-                 to_u64(rows[..., 1])), rows)
+            # warehouse changes inside its run (the keys are made outside
+            # the sort's span, so this span's device range starts before it)
+            keys = (torch.where(valid, to_u64(rows[..., 0]), SENTINEL),
+                    to_u64(rows[..., 1]))
+            with trace_mod.span("q95.aggregate.sort"):
+                o_s, r_s = _sort_by(keys, rows)
+            del keys  # freed as the sort returns, not held to the step's end
             seg = _Segments(o_s)
             live = o_s != SENTINEL
             wh_change = torch.cat(
@@ -516,7 +523,7 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
         return torch.cat([t, to_bits(pk)[..., None]], dim=2), pk
 
     def step(ss, sr, cs, cr, date):
-        with record_function("q64.catalog_join"):
+        with trace_mod.span("q64.catalog_join"):
             # round 1: catalog pair join
             cs_rows, cs_pk = with_pairkey(cs)
             cs_r, cs_v, o1 = _exchange(cs_rows, _route(cs_pk, _all(cs), n),
@@ -528,7 +535,7 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
                 cr_r[..., 3], cr_v, cr_r[..., 2],
                 torch.where(cs_v, to_u64(cs_r[..., 3]), SENTINEL))
             refund = torch.where(found, refund, 0)
-        with record_function("q64.catalog_group"):
+        with trace_mod.span("q64.catalog_group"):
             # round 2: group catalog by item -> cs_ui
             joined = torch.stack([cs_r[..., 0], cs_r[..., 2],
                                   to_bits(refund)], dim=2)
@@ -544,7 +551,7 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
             ui_flag = sale_sum > _wrap32(2 * refund_sum)
             # one entry per item run -> this shard's (item, ui) table
             ui_item = torch.where(seg.first & ui_flag & live, ik_s, SENTINEL)
-        with record_function("q64.store_join"):
+        with trace_mod.span("q64.store_join"):
             # round 3: store pair join (inner)
             ss_rows, ss_pk = with_pairkey(ss)
             ss_r, ss_v, o4 = _exchange(ss_rows, _route(ss_pk, _all(ss), n),
@@ -556,7 +563,7 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
                 sr_r[..., 2], sr_v, sr_r[..., 2],
                 torch.where(ss_v, to_u64(ss_r[..., 4]), SENTINEL))
             surv_v = ss_v & ret_found
-        with record_function("q64.date_join"):
+        with trace_mod.span("q64.date_join"):
             # round 4: date join on survivors
             d_r, d_v, o6 = _exchange(date, _route(date[..., 0], _all(date), n),
                                      _dim_cap(date.shape[1], n), impl)
@@ -567,7 +574,7 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
                 d_r[..., 0], d_v, d_r[..., 1],
                 torch.where(s2_v, to_u64(s2[..., 2]), SENTINEL))
             s2_v = s2_v & y_found & (year <= 1)
-        with record_function("q64.by_item"):
+        with trace_mod.span("q64.by_item"):
             # round 5: group by item; semi-join cs_ui; CTE self-join
             rows5 = torch.stack([s2[..., 0], to_bits(year), s2[..., 3]],
                                 dim=2)

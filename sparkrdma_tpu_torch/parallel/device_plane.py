@@ -12,15 +12,22 @@ int32 rows, keys compared as zero-extended int64 (``utils.u32``).
   host plane otherwise; on a multi-slice ``parallel.topology.Topology``
   the two-level link cost may choose the hierarchical plan.
 * ``make_fused_step``: partition + exchange + local sort in one step.
-  Each layer runs under a ``record_function`` span (``fused.local_sort``,
-  ``fused.counts``, ``fused.exchange``, ``fused.receive_sort``; the
-  exchange adds its own inside), so a ``torch.profiler`` trace splits its
-  device time by layer.
+  Each layer runs under a span (``utils.trace.span``): ``fused.local_sort``
+  (with ``exchange.group`` inside on the ``dest`` partition),
+  ``fused.counts``, ``exchange.receive_fill`` (the receive buffer's
+  zero fill), the exchange's own (``exchange.transport``, and
+  ``exchange.slot_fill``/``exchange.pack`` on the slot transports) and
+  ``fused.receive_sort``; every row gather inside is a ``mesh.take_rows``.
+  So a ``torch.profiler`` trace splits the step's device time by layer,
+  and with no profiler running the spans cost a flag check.
 * ``run_fused_exchange(_rounds)``: the host driver, bounded rounds sized
   from the memory budget (``auto_rows_per_round``), DOUBLE-BUFFERED: round
   ``k+1`` is staged and queued while round ``k``'s step runs on the card
-  and its results drain. Each round is one ``exchange.round`` span, each
-  overlapped pair one ``exchange.overlap`` instant.
+  and its results drain. Each round is one ``exchange.round`` span with
+  ``exchange.stage`` inside, each collection one ``exchange.collect``,
+  the tournament merge one ``exchange.merge``, each overlapped pair one
+  ``exchange.overlap`` instant. A span reaches the driver's tracer and,
+  while one records, the torch profiler.
 * ``run_hierarchical_exchange``: the two-level driver, per-slice fused
   steps over slice sub-meshes plus the slice-crossing residue charged
   through ``topology.record_cross_slice``; one slice's overflow degrades
@@ -43,7 +50,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from sparkrdma_tpu_torch.ops.partition import uniform_splitters
 from sparkrdma_tpu_torch.parallel import topology as topology_mod
@@ -326,8 +332,11 @@ def _local_sort(rows: torch.Tensor, keys: Tuple[torch.Tensor, ...],
         raise ValueError(f"unknown sort_mode {sort_mode!r} "
                          "(expected 'gather', 'multisort' or 'colsort')")
     order = _stable_order(keys)
-    sorted_keys = keys[0].gather(1, order)
+    # the row gather before the key gather: a span around this sort then
+    # ends on a kernel of its own, so its device range covers the
+    # ``mesh.take_rows`` one
     sorted_rows = take_rows(rows, order)
+    sorted_keys = keys[0].gather(1, order)
     if write_back_keys:
         sorted_rows[:, :, 0] = to_bits(sorted_keys)
     return sorted_rows, sorted_keys
@@ -400,14 +409,14 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
         return _local_sort(received, keys, sort_mode, write_back)[0]
 
     def exchange_and_sort(grouped, counts, slot_rows=None):
-        output = torch.zeros(
-            (local, grouped.shape[1] * out_factor, row_words),
-            dtype=grouped.dtype, device=grouped.device)
-        with record_function("fused.exchange"):
-            received, recv_counts, _, overflowed = exchange_over(
-                mesh, grouped, counts, output=output, impl=impl,
-                slot_rows=slot_rows)
-        with record_function("fused.receive_sort"):
+        with trace_mod.span("exchange.receive_fill"):
+            output = torch.zeros(
+                (local, grouped.shape[1] * out_factor, row_words),
+                dtype=grouped.dtype, device=grouped.device)
+        received, recv_counts, _, overflowed = exchange_over(
+            mesh, grouped, counts, output=output, impl=impl,
+            slot_rows=slot_rows)
+        with trace_mod.span("fused.receive_sort"):
             sorted_rows = sort_received(received, recv_counts.sum(dim=1))
         return sorted_rows, recv_counts, overflowed
 
@@ -429,11 +438,11 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
                                                     device=rows.device))
             # Local sort by KEY once: range partition is monotonic in
             # key, so key-sorted rows are destination-grouped for free.
-            with record_function("fused.local_sort"):
+            with trace_mod.span("fused.local_sort"):
                 grouped, sorted_keys = _local_sort(
                     rows, _row_keys(rows, 1), sort_mode, write_back)
             # per-destination counts: D-1 binary searches on sorted keys
-            with record_function("fused.counts"):
+            with trace_mod.span("fused.counts"):
                 bounds = torch.searchsorted(
                     sorted_keys, splitters.expand(local, n - 1).contiguous())
                 edge = torch.full((local, 1), rows.shape[1],
@@ -450,7 +459,7 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
         dest = dest.reshape(rows.shape[:2])
         if n == 1:
             return no_exchange(rows, dest >= 0)
-        with record_function("fused.local_sort"):
+        with trace_mod.span("fused.local_sort"):
             grouped, counts = group_by_destination(rows, dest, n)
         return exchange_and_sort(grouped, counts, slot_rows)
 
@@ -646,11 +655,9 @@ def run_fused_exchange_rounds(mesh: VirtualMesh, blocks, row_words: int,
         """Stage one round and queue its step and its download; nothing
         here waits for the card."""
         q = _slot_rows(dchunk, n, per_round // n, out_factor)
-        with tracer.span("exchange.round", "exchange", round=r,
-                         rows=len(chunk), slot_rows=q), \
-                record_function("exchange.round"):
-            with tracer.span("exchange.stage", "exchange", round=r), \
-                    record_function("exchange.stage"):
+        with trace_mod.span("exchange.round", tracer, round=r,
+                            rows=len(chunk), slot_rows=q):
+            with trace_mod.span("exchange.stage", tracer, round=r):
                 rows_d, dest_d = io.upload(r % 2, chunk, dchunk, n,
                                            per_round)
             handle = io.download(r % 2, step(rows_d, dest_d, q))
@@ -659,8 +666,7 @@ def run_fused_exchange_rounds(mesh: VirtualMesh, blocks, row_words: int,
 
     def collect(in_flight) -> None:
         r, handle = in_flight
-        with tracer.span("exchange.collect", "exchange", round=r), \
-                record_function("exchange.collect"):
+        with trace_mod.span("exchange.collect", tracer, round=r):
             out, counts, overflowed = io.collect(handle)
             if overflowed.any():
                 raise OverflowError(
@@ -689,8 +695,7 @@ def run_fused_exchange_rounds(mesh: VirtualMesh, blocks, row_words: int,
 
     if rounds == 0:
         return [np.zeros((0, row_words), np.uint32) for _ in range(n)], 0
-    with tracer.span("exchange.merge", "exchange", rounds=rounds), \
-            record_function("exchange.merge"):
+    with trace_mod.span("exchange.merge", tracer, rounds=rounds):
         return _merged(runs, key_words, row_words), rounds
 
 
@@ -819,13 +824,11 @@ def run_hierarchical_exchange(mesh: VirtualMesh,
                     continue
                 local = dchunk - lo   # slice-local destination shards
                 q = _slot_rows(local, ns, per_round // ns, out_factor)
-                with tracer.span("exchange.round", "exchange",
-                                 round=rounds, phase=phase, slice=s,
-                                 rows=len(chunk), slot_rows=q), \
-                        record_function("exchange.round"):
-                    with tracer.span("exchange.stage", "exchange",
-                                     round=rounds), \
-                            record_function("exchange.stage"):
+                with trace_mod.span("exchange.round", tracer,
+                                    round=rounds, phase=phase, slice=s,
+                                    rows=len(chunk), slot_rows=q):
+                    with trace_mod.span("exchange.stage", tracer,
+                                        round=rounds):
                         rows_d, dest_d = io.upload(s, chunk, local, ns,
                                                    per_round)
                     handle = io.download(s, step(rows_d, dest_d, q))
@@ -840,9 +843,8 @@ def run_hierarchical_exchange(mesh: VirtualMesh,
             charge()
             for s, lo, chunk, dchunk, handle in batch:
                 try:
-                    with tracer.span("exchange.collect", "exchange",
-                                     round=rounds, slice=s), \
-                            record_function("exchange.collect"):
+                    with trace_mod.span("exchange.collect", tracer,
+                                        round=rounds, slice=s):
                         collect(s, lo, handle)
                 except OverflowError:
                     # degrade ONLY this slice's rows to host serving
@@ -888,6 +890,5 @@ def run_hierarchical_exchange(mesh: VirtualMesh,
                        cross_slice_bytes=inter_rows * row_bytes,
                        degraded_slices=sorted(degraded))
 
-    with tracer.span("exchange.merge", "exchange", rounds=rounds), \
-            record_function("exchange.merge"):
+    with trace_mod.span("exchange.merge", tracer, rounds=rounds):
         return _merged(runs, key_words, row_words), rounds

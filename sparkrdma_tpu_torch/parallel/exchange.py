@@ -59,7 +59,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 import torch.distributed as dist
 
@@ -73,6 +72,7 @@ from sparkrdma_tpu_torch.ops.ring_exchange import (
     ring_all_to_all_peers_plain,
 )
 from sparkrdma_tpu_torch.parallel.mesh import GlobalMesh, take_rows
+from sparkrdma_tpu_torch.utils import trace as trace_mod
 from sparkrdma_tpu_torch.utils.u32 import rows_from_numpy
 
 # Host-side dispatch tally for the data plane: callers that launch an
@@ -89,6 +89,15 @@ def record_exchange(rows: int) -> None:
     with _DATA_PLANE_LOCK:
         DATA_PLANE["exchanges"] += 1
         DATA_PLANE["rows"] += int(rows)
+
+
+def _count_routed(data: torch.Tensor, mat: torch.Tensor) -> None:
+    """While profiled, add to ``exchange.bytes`` the bytes an exchange
+    routes: the ``mat.sum()`` rows of ``data`` it sends, each read once
+    and written once (one small reduction on the device, no sync)."""
+    if trace_mod.counting():
+        row_bytes = math.prod(data.shape[2:]) * data.element_size()
+        trace_mod.count("exchange.bytes", mat, 2 * row_bytes)
 
 
 def _exclusive_cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -239,7 +248,8 @@ def ragged_exchange_shard(data: torch.Tensor, send_counts: torch.Tensor,
     mat = send_counts.to(torch.int32)
     n = mat.shape[0]
     if output is None:
-        output = torch.zeros_like(data)
+        with trace_mod.span("exchange.receive_fill"):
+            output = torch.zeros_like(data)
     q = slot_rows or output.shape[1] // n
     if impl in ("dense", "ring") and q < 1:
         # a zero-row slot can carry nothing; gather handles any capacity
@@ -253,10 +263,11 @@ def ragged_exchange_shard(data: torch.Tensor, send_counts: torch.Tensor,
         received, recv_sizes, pair_overflow = _ring_exchange(
             data, mat, output, q)
     elif impl == "native":
-        with record_function("exchange.transport"):
+        with trace_mod.span("exchange.transport"):
             received = _native_exchange(data, mat, output)
     else:
         received = _gather_exchange(data, mat, output)
+    _count_routed(data, mat)
     overflowed = pair_overflow | (recv_sizes.sum(dim=1) > output.shape[1])
     return (received, recv_sizes.contiguous(),
             _exclusive_cumsum(recv_sizes, dim=1).to(torch.int32),
@@ -283,13 +294,13 @@ def _slot_exchange(data: torch.Tensor, mat: torch.Tensor,
     return value, and receive counts are always the TRUE per-source
     counts."""
     n = mat.shape[0]
-    with record_function("exchange.slot_fill"):
+    with trace_mod.span("exchange.slot_fill"):
         send, _, _, _ = _slot_fill(data, _exclusive_cumsum(mat, dim=1), mat,
                                    n, q)
-    with record_function("exchange.transport"):
+    with trace_mod.span("exchange.transport"):
         got = move(send.reshape((n, n, q) + data.shape[2:]))
     recv_true = mat.t()
-    with record_function("exchange.pack"):
+    with trace_mod.span("exchange.pack"):
         received = _pack_by_source(got, torch.clamp(recv_true, max=q),
                                    output)
     return received, recv_true, (recv_true > q).any(dim=1)
@@ -426,17 +437,18 @@ def ragged_exchange_global(mesh: GlobalMesh, data: torch.Tensor,
     mat_host = np.asarray(counts_host, dtype=np.int64).reshape(g, g)
     mat = torch.from_numpy(mat_host.astype(np.int32)).to(data.device)
     if output is None:
-        output = torch.zeros_like(data)
+        with trace_mod.span("exchange.receive_fill"):
+            output = torch.zeros_like(data)
     recv_true = mat.t()[lo:lo + dl]
     pair_overflow = torch.zeros(dl, dtype=torch.bool, device=data.device)
     q = max(1, slot_rows or global_slot_rows(mat_host, output.shape[1],
                                              data.shape[1]))
     if impl in ("ring", "dense"):
-        with record_function("exchange.slot_fill"):
+        with trace_mod.span("exchange.slot_fill"):
             send, _, _, _ = _slot_fill(data, _exclusive_cumsum(
                 mat[lo:lo + dl], dim=1), mat[lo:lo + dl], g, q)
         blocks = send.reshape((dl, g, q) + data.shape[2:])
-        with record_function("exchange.transport"):
+        with trace_mod.span("exchange.transport"):
             if impl == "ring":
                 words = blocks.contiguous().reshape(dl, g, q, -1).view(
                     torch.int32)
@@ -445,19 +457,20 @@ def ragged_exchange_global(mesh: GlobalMesh, data: torch.Tensor,
             else:
                 got = ring_all_to_all_peers_plain(blocks, mesh.data_group,
                                                   mesh.num_processes)
-        with record_function("exchange.pack"):
+        with trace_mod.span("exchange.pack"):
             received = _pack_by_source(got, torch.clamp(recv_true, max=q),
                                        output)
         pair_overflow = (recv_true > q).any(dim=1)
     elif impl == "gather":
-        with record_function("exchange.transport"):
+        with trace_mod.span("exchange.transport"):
             parts = [torch.empty_like(data)
                      for _ in range(mesh.num_processes)]
             dist.all_gather(parts, data.contiguous(), group=mesh.data_group)
             received = _gather_exchange(torch.cat(parts), mat, output, lo)
     else:
-        with record_function("exchange.transport"):
+        with trace_mod.span("exchange.transport"):
             received = _native_global(mesh, data, mat, output)
+    _count_routed(data, mat[lo:lo + dl])
     overflowed = pair_overflow | (recv_true.sum(dim=1) > output.shape[1])
     return (received, recv_true.contiguous(),
             _exclusive_cumsum(recv_true, dim=1).to(torch.int32),
@@ -489,15 +502,16 @@ def group_by_destination(data: torch.Tensor, dest: torch.Tensor,
     The counts come from the sorted destinations (one binary search per
     partition boundary), not from atomic adds: a scatter-add of every
     row into D+1 counters serialises on those few addresses."""
-    dest = dest.to(torch.int64)
-    dest = torch.where((dest < 0) | (dest >= num_partitions),
-                       num_partitions, dest)
-    sorted_dest, order = torch.sort(dest, dim=1, stable=True)
-    grouped = take_rows(data, order)
-    bounds = torch.arange(num_partitions + 1, device=dest.device)
-    edges = torch.searchsorted(
-        sorted_dest, bounds.expand(dest.shape[0], -1).contiguous())
-    return grouped, torch.diff(edges, dim=1).to(torch.int32)
+    with trace_mod.span("exchange.group"):
+        dest = dest.to(torch.int64)
+        dest = torch.where((dest < 0) | (dest >= num_partitions),
+                           num_partitions, dest)
+        sorted_dest, order = torch.sort(dest, dim=1, stable=True)
+        grouped = take_rows(data, order)
+        bounds = torch.arange(num_partitions + 1, device=dest.device)
+        edges = torch.searchsorted(
+            sorted_dest, bounds.expand(dest.shape[0], -1).contiguous())
+        return grouped, torch.diff(edges, dim=1).to(torch.int32)
 
 
 def shuffle_shard(data: torch.Tensor, dest: torch.Tensor,
@@ -535,9 +549,11 @@ def make_shuffle_exchange(mesh, impl: str = "auto", out_factor: int = 1):
 
     def exchange(data: torch.Tensor, dest: torch.Tensor,
                  counts_host: Optional[np.ndarray] = None):
-        output = torch.zeros((data.shape[0], data.shape[1] * out_factor)
-                             + tuple(data.shape[2:]), dtype=data.dtype,
-                             device=data.device)
+        with trace_mod.span("exchange.receive_fill"):
+            output = torch.zeros(
+                (data.shape[0], data.shape[1] * out_factor)
+                + tuple(data.shape[2:]), dtype=data.dtype,
+                device=data.device)
         return shuffle_shard(data, dest.reshape(data.shape[:2]), output,
                              impl, global_mesh, counts_host)
 
@@ -568,7 +584,7 @@ def _chunked_round(grouped: torch.Tensor, counts: torch.Tensor,
     counts = counts.to(torch.int64)
     lo = torch.clamp(counts, max=round_idx * quota)
     send_counts = torch.minimum(lo + quota, counts) - lo
-    with record_function("chunked.slot_fill"):
+    with trace_mod.span("chunked.slot_fill"):
         filled, _, _, _ = _slot_fill(
             grouped, _exclusive_cumsum(counts, dim=1) + lo, send_counts, n,
             quota)
@@ -577,19 +593,19 @@ def _chunked_round(grouped: torch.Tensor, counts: torch.Tensor,
     if impl == "ring":
         # the send rows already sit in [D, quota] blocks: the ring's fixed
         # block shape IS the quota, so no send-side compaction
-        with record_function("chunked.transport"):
+        with trace_mod.span("chunked.transport"):
             got = _ring_move_blocks(blocks)
-        with record_function("chunked.pack"):
+        with trace_mod.span("chunked.pack"):
             received = _pack_by_source(got, recv_counts,
                                        torch.zeros_like(filled))
         return received, recv_counts
     # collective transports take a compact destination-grouped send
     # buffer: the slot blocks packed by destination (rows past the total
     # stay zero, as the JAX scatter leaves them)
-    with record_function("chunked.pack"):
+    with trace_mod.span("chunked.pack"):
         send_buf = _pack_by_source(blocks, send_counts,
                                    torch.zeros_like(filled))
-    with record_function("chunked.transport"):
+    with trace_mod.span("chunked.transport"):
         # per-pair counts <= quota and the receive capacity is D*quota,
         # so the overflow flag cannot trip and is dropped, as in JAX
         received, recv_counts, _, _ = ragged_exchange_shard(
@@ -650,7 +666,7 @@ def _round_acc(grouped: torch.Tensor, counts: torch.Tensor, round_idx: int,
     """One round of the chunked exchange, landed in ``acc``; ``quota`` is
     bucketed and ``impl`` resolved."""
     received, _ = _chunked_round(grouped, counts, round_idx, quota, impl)
-    with record_function("chunked.land"):
+    with trace_mod.span("chunked.land"):
         _land(acc, received, counts, round_idx, quota)
     return acc
 

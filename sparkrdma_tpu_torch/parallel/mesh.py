@@ -21,10 +21,13 @@ crosses processes.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Optional, Tuple, Union
 
 import torch
+
+from sparkrdma_tpu_torch.utils import trace as trace_mod
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -118,10 +121,18 @@ class GlobalMesh:
 def take_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Per-shard ``take`` along dim 1: ``rows[d, idx[d, k]]`` for every
     shard d, as one flat ``index_select`` (``rows: [D, N, ...]``,
-    ``idx: [D, K]`` with entries in ``[0, N)``) -> ``[D, K, ...]``."""
-    d, n = rows.shape[0], rows.shape[1]
-    flat = idx.to(torch.int64) + torch.arange(
-        d, device=idx.device, dtype=torch.int64)[:, None] * n
-    picked = rows.reshape((d * n,) + rows.shape[2:]).index_select(
-        0, flat.reshape(-1))
+    ``idx: [D, K]`` with entries in ``[0, N)``) -> ``[D, K, ...]``.
+
+    One ``mesh.take_rows`` span; while profiled, ``gather.bytes`` counts
+    the bytes the gather must move: each picked row read and written,
+    and its 8-byte index read."""
+    with trace_mod.span("mesh.take_rows"):
+        d, n = rows.shape[0], rows.shape[1]
+        flat = idx.to(torch.int64) + torch.arange(
+            d, device=idx.device, dtype=torch.int64)[:, None] * n
+        picked = rows.reshape((d * n,) + rows.shape[2:]).index_select(
+            0, flat.reshape(-1))
+    if trace_mod.counting():
+        row_bytes = math.prod(rows.shape[2:]) * rows.element_size()
+        trace_mod.count("gather.bytes", idx.numel() * (2 * row_bytes + 8))
     return picked.reshape(idx.shape + rows.shape[2:])

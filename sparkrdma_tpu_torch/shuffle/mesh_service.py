@@ -83,7 +83,7 @@ def _unpacked(per_device: Sequence[np.ndarray], handle: ShuffleHandle,
               partitioner, tracer) -> List[Result]:
     """Per-shard device rows (already key-sorted) as result triples."""
     results = []
-    with tracer.span("mesh.unpack", "mesh"):
+    with trace_mod.span("mesh.unpack", tracer):
         for rows in per_device:
             k, p = _u32_to_rows(rows, handle.row_payload_bytes)
             results.append((k, p, np.asarray(partitioner(k),
@@ -191,10 +191,10 @@ def run_mesh_reduce_fused(managers: Sequence, handle: ShuffleHandle,
             delivered: set = set()
             for k, p in _spanned(
                     _iter_committed_batches(managers, handle, delivered),
-                    lambda: tracer.span("mesh.decode", "mesh")):
-                with tracer.span("mesh.pack", "mesh"):
+                    lambda: trace_mod.span("mesh.decode", tracer)):
+                with trace_mod.span("mesh.pack", tracer):
                     rows = _rows_to_u32(k, p)
-                with tracer.span("mesh.partition", "mesh"):
+                with trace_mod.span("mesh.partition", tracer):
                     dest = (np.asarray(partitioner(k), dtype=np.int32)
                             % n_dev)
                 while len(rows):
@@ -218,11 +218,11 @@ def run_mesh_reduce_fused(managers: Sequence, handle: ShuffleHandle,
     else:
         # one shot: the cost model only picks this when the stage fits
         # the budget, so whole-stage staging is within contract
-        with tracer.span("mesh.decode", "mesh"):
+        with trace_mod.span("mesh.decode", tracer):
             keys, payload = _stage_all(managers, handle, expect_maps)
-        with tracer.span("mesh.pack", "mesh"):
+        with trace_mod.span("mesh.pack", tracer):
             rows = _rows_to_u32(keys, payload)
-        with tracer.span("mesh.partition", "mesh"):
+        with trace_mod.span("mesh.partition", tracer):
             dest = (np.asarray(partitioner(keys), dtype=np.int32) % n_dev)
         per_device, _rounds = device_plane_mod.run_fused_exchange(
             mesh, rows, dest, key_words=2, out_factor=out_factor,
@@ -267,12 +267,12 @@ def run_mesh_reduce_hier(managers: Sequence, handle: ShuffleHandle,
     delivered: set = set()
     for i, k, p in _spanned(
             _iter_committed_batches_indexed(managers, handle, delivered),
-            lambda: tracer.span("mesh.decode", "mesh")):
+            lambda: trace_mod.span("mesh.decode", tracer)):
         home = topology.slice_of_slot(i, num_mgrs)
-        with tracer.span("mesh.partition", "mesh"):
+        with trace_mod.span("mesh.partition", tracer):
             parts = np.asarray(partitioner(k), dtype=np.int64)
             np.add.at(part_bytes[home], parts, row_bytes)
-        with tracer.span("mesh.pack", "mesh"):
+        with trace_mod.span("mesh.pack", tracer):
             all_rows.append(_rows_to_u32(k, p))
         all_parts.append(parts)
         all_home.append(np.full(len(k), home, dtype=np.int32))

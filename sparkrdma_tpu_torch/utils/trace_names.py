@@ -48,6 +48,43 @@ SPANS = frozenset({
     "mesh.pack",
     "mesh.partition",
     "mesh.unpack",
+    # and its step spans (utils/trace.span): the device plane's
+    # layers, the row gather, the exchange's phases and each
+    # model's rounds, which the benchmark's readers select on
+    "als.group",
+    "als.solve",
+    "chunked.land",
+    "chunked.pack",
+    "chunked.slot_fill",
+    "chunked.transport",
+    "exchange.group",
+    "exchange.pack",
+    "exchange.receive_fill",
+    "exchange.slot_fill",
+    "exchange.transport",
+    "fused.counts",
+    "fused.local_sort",
+    "fused.receive_sort",
+    "join.exchange",
+    "join.merge",
+    "mesh.take_rows",
+    "pagerank.contrib",
+    "pagerank.exchange",
+    "pagerank.sum",
+    "q64.by_item",
+    "q64.catalog_group",
+    "q64.catalog_join",
+    "q64.date_join",
+    "q64.store_join",
+    "q95.addr",
+    "q95.aggregate",
+    "q95.aggregate.sort",
+    "q95.by_order",
+    "q95.date",
+    "q95.site",
+    "tpcds.aggregate",
+    "tpcds.join1",
+    "tpcds.join2",
 })
 
 # Point-in-time instants (fault/decision markers).

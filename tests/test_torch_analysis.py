@@ -56,8 +56,22 @@ from sparkrdma_tpu_torch.utils.trace import Tracer
 ROOT = core.repo_root()
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "analysis")
 PREFIX = re.compile(r"\bsparkrdma_tpu\b")
+# the port's step spans (``utils/trace.span``), which the benchmark's
+# readers and chip_smoke.py select on by name
+STEP_SPANS = {
+    "als.group", "als.solve", "chunked.land", "chunked.pack",
+    "chunked.slot_fill", "chunked.transport", "exchange.group",
+    "exchange.pack", "exchange.receive_fill", "exchange.slot_fill",
+    "exchange.transport", "fused.counts", "fused.local_sort",
+    "fused.receive_sort", "join.exchange", "join.merge", "mesh.take_rows",
+    "pagerank.contrib", "pagerank.exchange", "pagerank.sum", "q64.by_item",
+    "q64.catalog_group", "q64.catalog_join", "q64.date_join",
+    "q64.store_join", "q95.addr", "q95.aggregate", "q95.aggregate.sort",
+    "q95.by_order", "q95.date", "q95.site", "tpcds.aggregate",
+    "tpcds.join1", "tpcds.join2"}
 PORT_SPANS = {"exchange.collect", "exchange.merge", "exchange.stage",
-              "mesh.decode", "mesh.pack", "mesh.partition", "mesh.unpack"}
+              "mesh.decode", "mesh.pack", "mesh.partition",
+              "mesh.unpack"} | STEP_SPANS
 
 _spec = importlib.util.spec_from_file_location(
     "port_host_plane", os.path.join(ROOT, "scripts", "port_host_plane.py"))
@@ -771,9 +785,9 @@ def test_trace_registry_is_reference_plus_port_names():
 # ----------------------------------------------------- the trace-name repair
 
 def test_port_emits_every_trace_name_as_a_literal():
-    """Every span the port's drivers and mesh service open names itself
-    as a literal at the ``tracer.span`` call, so the drift pass sees
-    ``exchange.round`` and the seven port-only names, and none is
+    """Every span the port's drivers, mesh service and step paths open
+    names itself as a literal at the ``trace_mod.span`` call, so the drift
+    pass sees ``exchange.round`` and every port-only name, and none is
     unregistered."""
     emitted, _ = drift._emitted_trace_names(ROOT)
     assert emitted["span"] >= PORT_SPANS | {"exchange.round"}
@@ -784,8 +798,9 @@ def test_port_emits_every_trace_name_as_a_literal():
 def test_driver_spans_keep_names_nesting_and_profiler_spans():
     """The fused round driver's host spans: one ``exchange.round`` per
     round with its args, an ``exchange.stage`` inside each, an
-    ``exchange.collect`` per round and one ``exchange.merge``; each with a
-    ``record_function`` span of the same name for ``torch.profiler``. The
+    ``exchange.collect`` per round and one ``exchange.merge``; each one
+    ``trace_mod.span``, which also opens a ``record_function`` range of
+    the same name while ``torch.profiler`` records. The
     mesh service's ``_spanned`` opens one span per batch it produces, and
     one for the exhausted read."""
     mesh = VirtualMesh(8, "cpu")

@@ -455,7 +455,7 @@ def test_tracer_matches_jax_events_and_profiles_on_the_cpu(tmp_path,
         tdp.run_fused_exchange(vmesh, rows, dest, impl="ring",
                                rows_per_round=40, out_factor=4)
     names = {e.key for e in prof.key_averages()}
-    assert {"exchange.round", "exchange.stage", "fused.exchange",
+    assert {"exchange.round", "exchange.stage", "exchange.receive_fill",
             "exchange.transport"} <= names
     written = list((tmp_path / "prof").glob("trace_*.json"))
     assert len(written) == 1

@@ -110,12 +110,24 @@ def _added_lines(path):
 
 
 def test_trace_names_hunk_adds_only_port_span_names():
-    """The registry's hunk only adds the seven span names the port's host
-    drivers and mesh service emit; every other line is the reference's."""
+    """The registry's hunk only adds span names: the seven the port's host
+    drivers and mesh service emit, then its step spans in order, each a
+    literal the port opens; every other line is the reference's."""
     added, reason = _added_lines("utils/trace_names.py")
-    assert added == ['"exchange.collect",', '"exchange.merge",',
-                     '"exchange.stage",', '"mesh.decode",', '"mesh.pack",',
-                     '"mesh.partition",', '"mesh.unpack",']
+    assert added[:7] == ['"exchange.collect",', '"exchange.merge",',
+                         '"exchange.stage",', '"mesh.decode",',
+                         '"mesh.pack",', '"mesh.partition",',
+                         '"mesh.unpack",']
+    step = [ln[1:-2] for ln in added[7:]]
+    assert all(re.fullmatch(r'"[a-z0-9_.]+",', ln) for ln in added[7:])
+    assert step == sorted(set(step))
+    assert {"mesh.take_rows", "exchange.group", "exchange.receive_fill",
+            "q95.aggregate.sort", "exchange.transport"} <= set(step)
+    assert "fused.exchange" not in step
+    opened = set(re.findall(r'trace_mod\.span\(\s*"([a-z0-9_.]+)"',
+                            "".join(p.read_text()
+                                    for p in PORT.rglob("*.py"))))
+    assert set(step) <= opened
     assert "reference lacks" in reason
 
 

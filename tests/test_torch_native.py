@@ -225,7 +225,8 @@ def test_auto_resolves_as_the_jax_package_on_its_chip():
 
 def test_native_emits_one_transport_span_and_no_slot_spans():
     """The whole copy is one ``exchange.transport`` span: no slot fill and
-    no pack, whatever ``slot_rows`` says."""
+    no pack, whatever ``slot_rows`` says (the default receive buffer's
+    zero fill is its own ``exchange.receive_fill``, for every transport)."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(7)
@@ -238,6 +239,7 @@ def test_native_emits_one_transport_span_and_no_slot_spans():
             tx.ragged_exchange_shard(data, counts, impl=impl, slot_rows=1)
         spans[impl] = {e.key for e in prof.key_averages()
                        if e.key.startswith("exchange.")}
-    assert spans["native"] == {"exchange.transport"}
-    assert spans["ring"] == {"exchange.slot_fill", "exchange.transport",
-                             "exchange.pack"}
+    assert spans["native"] == {"exchange.receive_fill",
+                               "exchange.transport"}
+    assert spans["ring"] == {"exchange.receive_fill", "exchange.slot_fill",
+                             "exchange.transport", "exchange.pack"}

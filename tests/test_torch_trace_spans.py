@@ -1,0 +1,310 @@
+"""The port's one span entry (``utils/trace.span``) and its counters.
+
+A span opens a ``record_function`` range only while a torch profiler
+records, and a Tracer event only while its tracer is enabled; with
+neither, a step enters the dispatcher for no span. The step paths that
+the benchmark's cells run emit the spans its readers select on (the row
+gather, the grouping, the receive fill, q95's aggregate sort), and count
+the bytes their gathers and exchanges move. Here on the CPU, at small
+sizes of the cells' own configurations, with the benchmark's readers run
+on synthetic summaries.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+from benchmarks import harness  # noqa: E402
+from benchmarks.jobs import q95 as q95_job  # noqa: E402
+from benchmarks.jobs import terasort as terasort_job  # noqa: E402
+from sparkrdma_tpu_torch.parallel import device_plane  # noqa: E402
+from sparkrdma_tpu_torch.parallel import exchange  # noqa: E402
+from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh, take_rows  # noqa: E402
+from sparkrdma_tpu_torch.utils import trace  # noqa: E402
+from sparkrdma_tpu_torch.utils.trace import Tracer  # noqa: E402
+
+# the cells' configurations cut to a CPU test's size
+SMALL = {
+    "q95": ("tpcds-sf1", {
+        "web_sales_rows": 16000, "ws_rows_per_device": 2000,
+        "orders": 1500, "customer_address_rows": 300, "states": 3,
+        "target_state": 2, "companies": 2, "web_site_rows": 6,
+        "ship_span_days": 150, "window_start_day": 35830}),
+    "terasort": ("terasort-hibench-large", {"rows_per_device": 1500}),
+}
+JOBS = {"q95": q95_job, "terasort": terasort_job}
+
+
+def _profile():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _fresh() -> None:
+    """A call with no profiler running: the next counted call starts the
+    counters from zero."""
+    assert not trace.counting()
+
+
+def _job(kind: str, impl: str, monkeypatch):
+    """``(cfg, run)``: the cell's small configuration and one job of the
+    port's step on it, its transport resolved to ``impl``."""
+    name, cut = SMALL[kind]
+    cfg = dict(harness.load_config(name), **cut)
+    resolve = exchange.resolve_impl
+    monkeypatch.setattr(exchange, "resolve_impl", lambda device, want="auto":
+                        resolve(device, impl if want == "auto" else want))
+    job = JOBS[kind]
+    inputs = job.make_inputs(cfg, 11, "cpu")
+    step, transport = job._port_step(cfg, "cpu")
+    assert transport == impl
+    if kind == "q95":
+        return cfg, lambda: step(inputs["ws"], inputs["wr"], inputs["date"],
+                                 inputs["addr"], inputs["site"])
+    return cfg, lambda: step(inputs["rows"])
+
+
+# -- the spans the cells' readers select on ----------------------------------
+
+@pytest.mark.parametrize("kind,names", [
+    ("q95", {"mesh.take_rows", "exchange.group", "exchange.receive_fill",
+             "exchange.transport", "q95.aggregate", "q95.aggregate.sort"}),
+    ("terasort", {"mesh.take_rows", "exchange.receive_fill",
+                  "exchange.transport", "fused.local_sort",
+                  "fused.receive_sort"}),
+])
+def test_a_profiled_step_emits_its_spans(kind, names, monkeypatch):
+    _, run = _job(kind, "native", monkeypatch)
+    with _profile() as prof:
+        run()
+    emitted = {e.key for e in prof.key_averages()}
+    assert names <= emitted
+    assert "fused.exchange" not in emitted
+
+
+# ops that launch no kernel on the card
+_VIEWS = {"aten::select", "aten::slice", "aten::reshape", "aten::view",
+          "aten::unsqueeze", "aten::expand", "aten::t", "aten::as_strided",
+          "aten::_reshape_alias", "aten::alias", "aten::detach"}
+# the spans the benchmark's readers take device time from
+_READ = {"q95.date", "q95.addr", "q95.site", "q95.by_order", "q95.aggregate",
+         "q95.aggregate.sort", "exchange.group", "exchange.receive_fill",
+         "exchange.transport", "mesh.take_rows", "fused.local_sort",
+         "fused.receive_sort"}
+
+
+@pytest.mark.parametrize("kind", ["q95", "terasort"])
+def test_a_read_span_opens_and_closes_on_its_own_work(kind, monkeypatch):
+    """On the card a kernel belongs to the innermost open span, and a span's
+    range runs from its first to its last own kernel: each span a reader
+    takes device time from starts and ends with an op of its own, so its
+    range covers the spans nested in it (q95's aggregate sort and the
+    sorts' row gathers)."""
+    _, run = _job(kind, "native", monkeypatch)
+    with _profile() as prof:
+        run()
+    checked = set()
+    for event in prof.events():
+        if event.name not in _READ:
+            continue
+        ops = [c for c in sorted(event.cpu_children,
+                                 key=lambda c: c.time_range.start)
+               if c.name not in _VIEWS]
+        assert ops, event.name
+        assert not ops[0].is_user_annotation, (event.name, ops[0].name)
+        assert not ops[-1].is_user_annotation, (event.name, ops[-1].name)
+        checked.add(event.name)
+    assert len(checked) == (10 if kind == "q95" else 5)
+
+
+def _count_enters(monkeypatch) -> list:
+    calls = []
+    enter = torch.ops.profiler._record_function_enter_new
+
+    def counted(*args, **kwargs):
+        calls.append(args[0])
+        return enter(*args, **kwargs)
+
+    monkeypatch.setattr(torch.ops.profiler, "_record_function_enter_new",
+                        counted)
+    return calls
+
+
+@pytest.mark.parametrize("kind", ["q95", "terasort", "round_driver"])
+def test_no_profiler_no_record_function(kind, monkeypatch):
+    """With no profiler running a step (and a round driver whose tracer
+    records) enters ``record_function`` zero times; under a profiler the
+    same call enters it for every span."""
+    if kind == "round_driver":
+        rng = np.random.default_rng(3)
+        rows = rng.integers(0, 2**32, size=(8 * 60, 4), dtype=np.uint32)
+        dest = rng.integers(0, 8, size=len(rows)).astype(np.int32)
+        tracer = Tracer()
+
+        def run():
+            device_plane.run_fused_exchange(
+                VirtualMesh(8, "cpu"), rows, dest, key_words=2, impl="ring",
+                out_factor=4, rows_per_round=30, tracer=tracer)
+    else:
+        _, run = _job(kind, "native", monkeypatch)
+    calls = _count_enters(monkeypatch)
+    run()
+    assert calls == []
+    if kind == "round_driver":
+        assert len(tracer.events("exchange.round")) == 2
+    with _profile():
+        run()
+    assert "mesh.take_rows" in calls and "exchange.transport" in calls
+
+
+def test_the_helper_is_one_shared_no_op_when_off():
+    assert trace.span("mesh.take_rows") is trace.span("exchange.group")
+    assert trace.span("exchange.round", trace.NULL, round=1) is \
+        trace.span("exchange.round", None)
+    tracer = Tracer()
+    with trace.span("exchange.round", tracer, round=4, rows=9):
+        pass
+    (event,) = tracer.events("exchange.round")
+    assert (event["cat"], event["ph"], event["args"]) == (
+        "exchange", "X", {"round": 4, "rows": 9})
+
+
+# -- one clock ---------------------------------------------------------------
+
+def test_a_tracer_span_lies_inside_its_profiler_range(tmp_path):
+    """The Tracer stamps Unix-epoch µs, the clock of a profiler export
+    (``ts`` plus ``baseTimeNanoseconds / 1000``), so each span the helper
+    records lies inside the ``record_function`` range it opened."""
+    tracer = Tracer()
+    with trace.device_profile(str(tmp_path)):
+        for r in range(4):
+            with trace.span("exchange.round", tracer, round=r):
+                torch.ones(256).cumsum(0)
+    exported = json.loads(next(tmp_path.glob("trace_*.json")).read_text())
+    base = exported["baseTimeNanoseconds"] / 1e3
+    ranges = sorted((float(e["ts"]) + base,
+                     float(e["ts"]) + float(e["dur"]) + base)
+                    for e in exported["traceEvents"]
+                    if e.get("name") == "exchange.round"
+                    and e.get("ph") == "X")
+    spans = sorted((e["ts"], e["ts"] + e["dur"])
+                   for e in tracer.events("exchange.round"))
+    assert len(ranges) == len(spans) == 4
+    for (lo, hi), (start, end) in zip(ranges, spans):
+        assert lo <= start <= end <= hi
+
+
+# -- the counters ------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,dtype,picks", [
+    ((8, 50, 7), torch.int32, 30),
+    ((4, 20), torch.int64, 5),
+    ((2, 10, 3, 2), torch.float32, 10),
+    ((3, 6, 25), torch.int32, 0),
+])
+def test_the_gather_counter_is_the_bytes_of_its_shapes(shape, dtype, picks):
+    rows = torch.arange(math.prod(shape)).reshape(shape).to(dtype)
+    idx = torch.randint(0, shape[1], (shape[0], picks), dtype=torch.int32)
+    row_bytes = math.prod(shape[2:]) * rows.element_size()
+    _fresh()
+    with _profile():
+        got = take_rows(rows, idx)
+        take_rows(rows, idx)
+    assert torch.equal(got, torch.stack([rows[d, idx[d].long()]
+                                         for d in range(shape[0])]))
+    want = 2 * idx.numel() * (2 * row_bytes + 8)
+    assert trace.counts().get("gather.bytes", 0) == want
+
+
+def test_counters_hold_only_the_last_profiled_window():
+    rows = torch.zeros((2, 8, 4), dtype=torch.int32)
+    idx = torch.zeros((2, 3), dtype=torch.int64)
+    one = idx.numel() * (2 * 16 + 8)
+    _fresh()
+    with _profile():
+        take_rows(rows, idx)
+    take_rows(rows, idx)                       # no profiler: not counted
+    assert trace.counts()["gather.bytes"] == one
+    with _profile():
+        take_rows(rows, idx)
+        take_rows(rows, idx)
+    assert trace.counts()["gather.bytes"] == 2 * one
+    with _profile():                           # no unprofiled call between
+        take_rows(rows, idx)
+    assert trace.counts()["gather.bytes"] == 3 * one
+
+
+@pytest.mark.parametrize("kind", ["q95", "terasort"])
+@pytest.mark.parametrize("impl", ["native", "gather"])
+def test_the_transport_counter_is_the_jobs_exchange_bytes(kind, impl,
+                                                          monkeypatch):
+    """The program's count of the bytes its exchanges route (each row
+    read once and written once, dead rows too) is the job module's
+    ``exchange_bytes``, a job; its gathers' count is the job's
+    ``take_rows`` shapes."""
+    cfg, run = _job(kind, impl, monkeypatch)
+    _fresh()
+    with _profile():
+        run()
+        run()
+    got = trace.counts()
+    assert got["exchange.bytes"] == 2 * JOBS[kind].exchange_bytes(cfg)
+    assert got["gather.bytes"] > 0
+
+
+def test_the_transport_counter_adds_on_the_device_with_no_sync():
+    data = torch.zeros((3, 5, 2), dtype=torch.int32)
+    mat = torch.tensor([[1, 2, 0], [0, 0, 5], [1, 1, 1]], dtype=torch.int32)
+    _fresh()
+    with _profile():
+        exchange.ragged_exchange_shard(data, mat, impl="native")
+    assert trace._counts["exchange.bytes"].dtype == torch.int64
+    assert trace.counts() == {"exchange.bytes": 11 * 8 * 2}
+
+
+# -- the benchmark's readers on a synthetic summary ---------------------------
+
+def _ctx(spans_us: dict, jobs: int = 2) -> harness.Context:
+    summary = harness.TraceSummary(jobs, 1.0, 0.5, spans_us, [], [])
+    return harness.Context(summary, [0.002], exchange_bytes=10**6)
+
+
+GB = 10**9
+SPANS = {"mesh.take_rows": 8000.0, "exchange.receive_fill": 600.0,
+         "exchange.group": 3000.0, "q95.aggregate.sort": 4200.0}
+COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB}
+
+
+@pytest.mark.parametrize("metric,want", [
+    ("gather.rows_ms", 4.0),
+    ("exchange.receive_fill_ms", 0.3),
+    ("exchange.group_ms", 1.5),
+    ("q95.aggregate_sort_ms", 2.1),
+    ("gather.gb", 6.0),
+    ("exchange.gb", 3.0),
+    # 6 GB at 3.35 TB/s over 4 ms
+    ("gather_roofline", 100 * 6 * GB / 3.35e12 / 4e-3),
+])
+def test_a_reader_on_a_synthetic_summary(metric, want, monkeypatch):
+    reader = harness.load_readers()[metric]
+    monkeypatch.setattr(trace, "counts", lambda: dict(COUNTS))
+    assert reader.read(_ctx(SPANS)) == pytest.approx(want)
+    # nothing to read: no span, no count, or a program without counters
+    monkeypatch.setattr(trace, "counts", dict)
+    assert reader.read(_ctx({})) is None
+    monkeypatch.delattr(trace, "counts")
+    if metric.endswith("_ms"):
+        assert reader.read(_ctx(SPANS)) == pytest.approx(want)
+    else:
+        assert reader.read(_ctx(SPANS)) is None
