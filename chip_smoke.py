@@ -29,7 +29,18 @@ printing one JSON line; any failure raises and the exit code is not 0:
    bound of the rows the counts move, ``gather_ms``, host µs per
    launch), at row widths 1, 2, 3, 5 and 25 under random, skewed,
    empty, flooding (truncated) and holed counts, and replayed in a
-   CUDA graph on new rows and counts;
+   CUDA graph on new rows and counts; then kernel_gather: the row gather
+   kernel ``row_gather`` (under every ``take_rows``) against its plain
+   version, byte for byte and one launch a call, at q95's SF10 fact
+   gathers (grouping and random-permutation indices), its
+   customer_address and web_returns groupings, TeraSort's 25-word local
+   and receive sorts and two odd shapes, each timed against its byte
+   bound, the plain version and one flat ``index_select``
+   (``library_ms``); from here on every CUDA ``take_rows`` call is
+   counted with the launches it asks for (in the worker processes of the
+   multihost and analysis phases too), each counted path's gather
+   launches are held to its own calls, and the end holds the process's
+   launches to all of them;
 4. main path: TeraSort of 1 GiB of 100-byte rows over an 8-shard virtual
    mesh with ``impl="auto"`` (the ragged kernel) and again with
    ``impl="ring"`` (BASELINE.md config #1), counting each kernel's
@@ -163,9 +174,11 @@ printing one JSON line; any failure raises and the exit code is not 0:
     lock sites and walls printed, the kernel's launches counted under
     ``analysis/lockgraph_engine`` and held to the plain version at every
     block shape;
-17. the kernel table line (both kernels, each with the launches of the
-    paths that ran it: ``auto`` is the ragged kernel, on one card and
-    over the multihost phase's global mesh), then the device line last.
+17. the kernel table line (the ring and ragged kernels, each with the
+    launches of the paths that ran it: ``auto`` is the ragged kernel, on
+    one card and over the multihost phase's global mesh; the row gather
+    with the launches of each counted path of this process), then the
+    device line last.
 """
 
 from __future__ import annotations
@@ -223,12 +236,17 @@ from sparkrdma_tpu_torch.models.terasort import (
     run_terasort_streamed,
     verify_terasort,
 )
-from sparkrdma_tpu_torch.ops import _build, ragged_exchange, ring_exchange
+from sparkrdma_tpu_torch.ops import (
+    _build,
+    ragged_exchange,
+    ring_exchange,
+    row_gather,
+)
 from sparkrdma_tpu_torch.parallel.exchange import (
     bucket_quota,
     chunked_exchange,
 )
-from sparkrdma_tpu_torch.parallel import exchange, multihost, topology
+from sparkrdma_tpu_torch.parallel import exchange, mesh, multihost, topology
 from sparkrdma_tpu_torch.parallel.device_plane import (
     auto_rows_per_round,
     run_fused_exchange,
@@ -300,9 +318,35 @@ PATH_RING_SHAPES = ((8, 8, 131072, 2), (8, 8, 262144, 2), (8, 8, 14746, 2),
                     (8, 8, 65536, 25), (4, 4, 334494, 25),
                     (4, 4, 336595, 25), (4, 4, 336682, 25), (8, 8, 819, 3),
                     (8, 8, 25000, 5), (8, 8, 29, 3))
-KERNELS = ("ring_exchange",)  # csrc/ sources: both kernels are in one
+# csrc/ sources: the ring and ragged kernels are in one, the row gather
+# in the other
+KERNELS = ("ring_exchange", "row_gather")
 RING = "ring_all_to_all"
 NATIVE = "ragged_all_to_all"
+GATHER = "row_gather"
+# the row gather's cases: (name, D, N, K, row words, indices), indices
+# "group" (a stable sort of random destinations, the first third of the
+# rows live where K = 3 x the live rows) or "perm" (a random permutation
+# a shard, or random rows where K != N)
+GATHER_CASES = (
+    ("q95.round1", 8, 899_696, 899_696, 8, "group"),
+    ("q95.group", 8, 2_699_088, 2_699_088, 8, "group"),
+    ("q95.aggregate", 8, 2_699_088, 2_699_088, 8, "perm"),
+    ("q95.customer_address", 8, 31_250, 31_250, 2, "group"),
+    ("q95.web_returns", 8, 89_902, 89_902, 1, "group"),
+    ("terasort.local", 8, 4_000_000, 4_000_000, 25, "perm"),
+    ("terasort.receive", 8, 8_000_000, 8_000_000, 25, "perm"),
+    ("odd.w1", 8, 100_003, 77_777, 1, "perm"),
+    ("odd.w3", 5, 100_003, 123_457, 3, "perm"),
+)
+# CUDA take_rows calls with a non-empty result in this process and the
+# kernel launches they ask for, counted by the wrapper _count_take_rows
+# installs; the row gather's launches and shapes of the process, banked
+# from row_gather.LAUNCHES and SHAPES each time _launches zeroes them; its
+# launches per counted path, set by _launches
+TAKE_ROWS = {"calls": 0, "launches": 0}
+GATHER_BANKED = {"launches": 0, "shapes": {}}
+GATHER_OF_PATH: dict = {}
 # each kernel's wrapper module, which holds its LAUNCHES and SHAPES
 COUNTERS = {RING: ring_exchange, NATIVE: ragged_exchange}
 # the kernel each counted path launched: set by _launches, and by the
@@ -793,6 +837,111 @@ def phase_kernel_native(cfg: TeraSortConfig) -> dict:
     return row
 
 
+def _gather_indices(kind: str, d: int, n: int, k: int,
+                    seed: int) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "group":
+        dest = torch.randint(0, SHARDS, (d, n), device="cuda", generator=gen)
+        if k == n and n > 1_000_000 and n % 3 == 0:
+            dest[:, n // 3:] = SHARDS          # padding sorts to the end
+        return torch.sort(dest, dim=1, stable=True).indices[:, :k]
+    if k == n:
+        return torch.stack([torch.randperm(n, device="cuda", generator=gen)
+                            for _ in range(d)])
+    return torch.randint(0, n, (d, k), device="cuda", generator=gen)
+
+
+def phase_kernel_gather() -> dict:
+    """The row gather kernel against its plain version at
+    ``GATHER_CASES``, byte for byte and one launch a call; each case
+    timed (its rows are read where ``take_rows`` finds them: the larger
+    ones exceed the L2, the dimension tables fit it) against the bytes
+    ``gather.bytes`` counts at the card's memory rate, the plain version
+    and one flat ``index_select`` over a ready index. Returns the
+    kernel's row. The phase's own launches leave ``row_gather``'s counts
+    as they were: they are no ``take_rows`` call's."""
+    first, shapes = row_gather.LAUNCHES, dict(row_gather.SHAPES)
+    by_shape = []
+    for i, (name, d, n, k, w, kind) in enumerate(GATHER_CASES):
+        rows = _random_blocks((d, n, w), 200 + i)
+        idx = _gather_indices(kind, d, n, k, 300 + i)
+        before = row_gather.LAUNCHES
+        got = row_gather.row_gather(rows, idx)
+        plain = row_gather.row_gather_plain(rows, idx)
+        torch.cuda.synchronize()
+        if row_gather.LAUNCHES != before + len(row_gather.pieces(d, k)):
+            raise AssertionError(f"row_gather launched "
+                                 f"{row_gather.LAUNCHES - before} times "
+                                 f"at {name}")
+        if not torch.equal(got, plain):
+            raise AssertionError(f"row_gather != plain at {name}")
+        err = _max_abs_err(got, plain)
+        del got, plain
+        flat = (idx + torch.arange(d, device="cuda")[:, None] * n).reshape(-1)
+        table = rows.reshape(d * n, w)
+        row_bytes = w * 4
+        moved = idx.numel() * (2 * row_bytes + 8)
+        ms = cuda_ms(lambda: row_gather.row_gather(rows, idx), 5, 5)
+        entry = {"case": name, "shape": [d, n, w], "picked": k,
+                 "indices": kind, "vector_bytes": row_gather.vector_bytes(
+                     row_bytes, rows.data_ptr(), 0),
+                 "bytes_moved": moved, "ms": ms,
+                 "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                 "plain_ms": cuda_ms(
+                     lambda: row_gather.row_gather_plain(rows, idx), 5, 5),
+                 "library_ms": cuda_ms(
+                     lambda: table.index_select(0, flat), 5, 5),
+                 "max_abs_err": err}
+        entry["roofline_share"] = entry["bound_ms"] / ms
+        entry["vs_library"] = entry["library_ms"] / ms
+        by_shape.append(entry)
+        emit({"phase": "kernel_gather", **entry})
+        del rows, idx, flat, table
+        torch.cuda.empty_cache()
+    row_gather.LAUNCHES = first
+    row_gather.SHAPES.clear()
+    row_gather.SHAPES.update(shapes)
+    main = next(e for e in by_shape if e["case"] == "q95.group")
+    return {"name": GATHER, "route": "cuda",
+            "source": "sparkrdma_tpu_torch/csrc/row_gather.cu",
+            "replaces": None, "launches": 0,
+            "max_abs_err": max(e["max_abs_err"] for e in by_shape),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": main["library_ms"], "by_shape": by_shape}
+
+
+def _count_take_rows() -> None:
+    """Count each CUDA ``take_rows`` call with a non-empty result, and the
+    kernel launches it asks for, in ``TAKE_ROWS``: every module of the
+    port that holds ``take_rows`` (and ``parallel.mesh``, for later
+    imports) gets a counting wrapper."""
+    inner = mesh.take_rows
+
+    def counted(rows, idx):
+        out = inner(rows, idx)
+        if out.is_cuda and out.numel():
+            TAKE_ROWS["calls"] += 1
+            TAKE_ROWS["launches"] += len(row_gather.pieces(idx.shape[0],
+                                                           idx.shape[1]))
+        return out
+    for mod in list(sys.modules.values()):
+        if (getattr(mod, "__name__", "").startswith("sparkrdma_tpu_torch")
+                and getattr(mod, "take_rows", None) is inner):
+            mod.take_rows = counted
+
+
+def _bank_gather_counts() -> None:
+    """Add ``row_gather.LAUNCHES`` and ``SHAPES`` to ``GATHER_BANKED`` and
+    set them to 0."""
+    GATHER_BANKED["launches"] += row_gather.LAUNCHES
+    shapes = GATHER_BANKED["shapes"]
+    for key, n in row_gather.SHAPES.items():
+        shapes[key] = shapes.get(key, 0) + n
+    row_gather.LAUNCHES = 0
+    row_gather.SHAPES.clear()
+
+
 def phase_kernel_chunked(row: dict) -> None:
     """The kernel against its plain version at the ALS path's block shape
     ``[D, D, bucket_quota(quota), 3]``, timed like ``phase_kernel``; the
@@ -1102,15 +1251,27 @@ def phase_bench(table: dict) -> dict:
 
 
 def _launches(path: str, fn, kernel: str = NATIVE):
-    """``fn()`` with both kernels' launch counts set to 0 just before it
-    and read just after; raises if the path never launched ``kernel``
-    (``impl="auto"`` on the card is the ragged kernel) or launched the
-    other one. Returns ``(fn(), launches, launches per shape)``."""
+    """``fn()`` with both transport kernels' and the row gather's launch
+    counts set to 0 just before it and read just after; raises if the
+    path never launched ``kernel`` (``impl="auto"`` on the card is the
+    ragged kernel), launched the other one, or launched the row gather
+    other than its CUDA ``take_rows`` calls asked (the gather runs beside
+    either transport). The path's gather launches go to
+    ``GATHER_OF_PATH``. Returns ``(fn(), launches, launches per
+    shape)``."""
     for mod in COUNTERS.values():
         mod.LAUNCHES = 0
         mod.SHAPES.clear()
+    _bank_gather_counts()
+    asked = TAKE_ROWS["launches"]
     out = fn()
     torch.cuda.synchronize()
+    asked = TAKE_ROWS["launches"] - asked
+    if row_gather.LAUNCHES != asked:
+        raise AssertionError(
+            f"the {path} path launched row_gather {row_gather.LAUNCHES} "
+            f"times; its CUDA take_rows calls asked for {asked}")
+    GATHER_OF_PATH[path] = row_gather.LAUNCHES
     launched = {name: mod.LAUNCHES for name, mod in COUNTERS.items()}
     if launched[kernel] == 0:
         raise AssertionError(f"the {path} path never launched {kernel}")
@@ -2415,6 +2576,7 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
     multihost.init_multihost(f"127.0.0.1:{port}", MH_PROCESSES, rank,
                              local_device_count=MH_LOCAL_SHARDS,
                              platform="cuda")
+    _count_take_rows()
     mesh = multihost.global_mesh("shuffle")
     dl, g = mesh.local_shards, mesh.num_shards
     report = {"rank": rank, "init_s": time.perf_counter() - t_start}
@@ -3101,6 +3263,7 @@ def lockgraph_worker(out_path: str) -> None:
     graph = lockgraph.current()
     if graph is None:
         raise AssertionError("the lock-order shim is not installed")
+    _count_take_rows()
     keys, payload, generate_s = _mesh_records(MS_MAPS * LG_MAP_ROWS)
     t0 = time.perf_counter()
     want = mesh_service.split_by_partition(_mesh_oracle(keys, payload),
@@ -3189,7 +3352,9 @@ def main() -> None:
     phase_device()
     phase_build()
     cfg = TeraSortConfig(rows_per_device=DATA_BYTES // 100 // SHARDS)
+    _count_take_rows()
     table = {RING: phase_kernel(cfg), NATIVE: phase_kernel_native(cfg)}
+    gather_row = phase_kernel_gather()
     launches = phase_main_path(cfg, table)
     launches.update(phase_streamed(cfg, table))
     launches.update(phase_bench(table))
@@ -3226,6 +3391,22 @@ def main() -> None:
             raise AssertionError(f"no path launched {kernel}")
         row["launches"] = sum(mine.values())
         row["launches_by_path"] = mine
+    _bank_gather_counts()
+    if GATHER_BANKED["launches"] != TAKE_ROWS["launches"]:
+        raise AssertionError(
+            f"row_gather launched {GATHER_BANKED['launches']} times after "
+            f"its phase; the {TAKE_ROWS['calls']} CUDA take_rows calls "
+            f"asked for {TAKE_ROWS['launches']}")
+    for path in ("terasort", "terasort/ring"):
+        if not GATHER_OF_PATH[path]:
+            raise AssertionError(f"the {path} path never launched "
+                                 f"{GATHER}")
+    mine = {path: n for path, n in GATHER_OF_PATH.items() if n}
+    gather_row["launches"] = sum(mine.values())
+    gather_row["launches_by_path"] = mine
+    gather_row["shapes"] = [[list(k), n] for k, n in
+                            sorted(GATHER_BANKED["shapes"].items())]
+    table[GATHER] = gather_row
     emit({"kernels": list(table.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

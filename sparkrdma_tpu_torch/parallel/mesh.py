@@ -27,6 +27,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from sparkrdma_tpu_torch.ops.row_gather import row_gather
 from sparkrdma_tpu_torch.utils import trace as trace_mod
 
 
@@ -120,19 +121,17 @@ class GlobalMesh:
 
 def take_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Per-shard ``take`` along dim 1: ``rows[d, idx[d, k]]`` for every
-    shard d, as one flat ``index_select`` (``rows: [D, N, ...]``,
-    ``idx: [D, K]`` with entries in ``[0, N)``) -> ``[D, K, ...]``.
+    shard d (``rows: [D, N, ...]``, ``idx: [D, K]`` int32 or int64 with
+    entries in ``[0, N)``) -> ``[D, K, ...]``: one launch of the row
+    gather kernel on the card (``ops/row_gather.py``), one flat
+    ``index_select`` on the CPU.
 
     One ``mesh.take_rows`` span; while profiled, ``gather.bytes`` counts
     the bytes the gather must move: each picked row read and written,
     and its 8-byte index read."""
     with trace_mod.span("mesh.take_rows"):
-        d, n = rows.shape[0], rows.shape[1]
-        flat = idx.to(torch.int64) + torch.arange(
-            d, device=idx.device, dtype=torch.int64)[:, None] * n
-        picked = rows.reshape((d * n,) + rows.shape[2:]).index_select(
-            0, flat.reshape(-1))
+        picked = row_gather(rows, idx)
     if trace_mod.counting():
         row_bytes = math.prod(rows.shape[2:]) * rows.element_size()
         trace_mod.count("gather.bytes", idx.numel() * (2 * row_bytes + 8))
-    return picked.reshape(idx.shape + rows.shape[2:])
+    return picked

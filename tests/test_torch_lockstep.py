@@ -51,6 +51,7 @@ PORTED = (
     "ops/partition.py",
     "ops/ragged_exchange.py",
     "ops/ring_exchange.py",
+    "ops/row_gather.py",
     "ops/sort.py",
     "parallel/device_plane.py",
     "parallel/exchange.py",
