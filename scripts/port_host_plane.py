@@ -131,6 +131,7 @@ HUNKS = {
         '    "chunked.pack",\n'
         '    "chunked.slot_fill",\n'
         '    "chunked.transport",\n'
+        '    "exchange.arena_copy",\n'
         '    "exchange.group",\n'
         '    "exchange.pack",\n'
         '    "exchange.receive_fill",\n'

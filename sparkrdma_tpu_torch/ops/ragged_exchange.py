@@ -26,7 +26,11 @@ ring shares); after the closing fence each process copies its receivers'
 rows out of its arena into ``output``. On the CPU it takes
 ``ragged_all_to_all_peers_plain``, one ``all_to_all_single`` with split
 sizes over the process group. Its launches count in ``LAUNCHES`` and in
-``SHAPES`` per ``(Dl, G, cap, W, out_cap)``.
+``SHAPES`` per ``(Dl, G, cap, W, out_cap)``. Both forms copy the
+received rows into ``output`` inside one ``exchange.arena_copy`` span
+and, while profiled, count those rows' bytes, read and written, in
+``exchange.arena_copy_bytes``; on ``cuda`` the host nanoseconds of the
+fences add to ``exchange.fence_ns``.
 
 Unlike the JAX function, all of them write into ``output`` in place and
 return it: every caller builds ``output`` for one exchange and reads it
@@ -36,6 +40,8 @@ only as the result. A caller that reuses its buffer clones it first.
 from __future__ import annotations
 
 import ctypes
+import math
+import time
 import zlib
 from typing import Dict, List, Sequence, Tuple
 
@@ -48,6 +54,7 @@ from sparkrdma_tpu_torch.ops.ring_exchange import (
     _fill_bases,
     _library,
 )
+from sparkrdma_tpu_torch.utils import trace as trace_mod
 
 LAUNCHES = 0
 SHAPES: Dict[Tuple[int, ...], int] = {}
@@ -191,14 +198,27 @@ def ragged_all_to_all_peers_plain(data: torch.Tensor, mat: torch.Tensor,
     # block (source i, receiver e) sits at the (i, e)-major prefix sum
     block_off = (np.cumsum(to_me.reshape(-1)) - to_me.reshape(-1)).reshape(
         g, dl)
-    for e in range(dl):
-        idx = np.concatenate([np.arange(block_off[i, e],
-                                        block_off[i, e] + to_me[i, e])
-                              for i in range(g)])[:out_cap]
-        if len(idx):
-            output[e, :len(idx)] = recv.index_select(
-                0, torch.from_numpy(idx.astype(np.int64)).to(dev))
+    copied = 0
+    with trace_mod.span("exchange.arena_copy"):
+        for e in range(dl):
+            idx = np.concatenate([np.arange(block_off[i, e],
+                                            block_off[i, e] + to_me[i, e])
+                                  for i in range(g)])[:out_cap]
+            if len(idx):
+                output[e, :len(idx)] = recv.index_select(
+                    0, torch.from_numpy(idx.astype(np.int64)).to(dev))
+            copied += len(idx)
+    _count_copy_out(output, copied)
     return output
+
+
+def _count_copy_out(output: torch.Tensor, rows: int) -> None:
+    """While profiled, add to ``exchange.arena_copy_bytes`` the bytes of
+    the ``rows`` received rows copied out into ``output``, each read once
+    and written once."""
+    if trace_mod.counting():
+        row_bytes = math.prod(output.shape[2:]) * output.element_size()
+        trace_mod.count("exchange.arena_copy_bytes", rows * 2 * row_bytes)
 
 
 def _ragged_peer_pointer_table(data: torch.Tensor, arena_bases: Sequence[int],
@@ -300,9 +320,11 @@ def ragged_all_to_all_peers(data: torch.Tensor, mat: torch.Tensor,
     _, cap, w = data.shape
     out_cap = output.shape[1]
     stream = torch.cuda.current_stream(data.device)
+    opened = time.perf_counter_ns()
     stream.synchronize()                 # this process's arena reads done
     m = mat.cpu().numpy()
     _agree(mesh, cap, out_cap, w, m)
+    fence_ns = time.perf_counter_ns() - opened
     arena = mesh.arena
     arena.ensure(max(4, dl * out_cap * w * 4))
     if data.numel() and output.numel():
@@ -312,12 +334,19 @@ def ragged_all_to_all_peers(data: torch.Tensor, mat: torch.Tensor,
         LAUNCHES += 1
         shape = (dl, g, cap, w, out_cap)
         SHAPES[shape] = SHAPES.get(shape, 0) + 1
+    closing = time.perf_counter_ns()
     stream.synchronize()
     dist.barrier(group=mesh.group)       # every process's writes landed
-    totals = np.maximum(m, 0)[:, lo:lo + dl].sum(axis=0)
+    fence_ns += time.perf_counter_ns() - closing
+    if trace_mod.counting():
+        trace_mod.count("exchange.fence_ns", fence_ns)
+    totals = np.minimum(np.maximum(m, 0)[:, lo:lo + dl].sum(axis=0),
+                        out_cap)
     landed = arena.local((dl, out_cap, w))
-    for e in range(dl):
-        n = min(int(totals[e]), out_cap)
-        if n:
-            output[e, :n].copy_(landed[e, :n])
+    with trace_mod.span("exchange.arena_copy"):
+        for e in range(dl):
+            n = int(totals[e])
+            if n:
+                output[e, :n].copy_(landed[e, :n])
+    _count_copy_out(output, int(totals.sum()))
     return output

@@ -55,6 +55,7 @@ from __future__ import annotations
 import functools
 import math
 import threading
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -423,7 +424,9 @@ def ragged_exchange_global(mesh: GlobalMesh, data: torch.Tensor,
     ``counts_host``, when the caller counted on the host, is the whole
     ``[G, G]`` matrix (rows by global source) and spares the all-gather
     of the device counts. ``slot_rows`` defaults to
-    ``global_slot_rows``.
+    ``global_slot_rows``. While profiled, the host nanoseconds of that
+    read and all-gather add to the ``exchange.fence_ns`` counter, as the
+    native transport's own fences do.
 
     Returns the JAX package's per-shard results for the local shards:
     ``received [Dl, out_capacity, ...]`` packed by global source,
@@ -432,8 +435,11 @@ def ragged_exchange_global(mesh: GlobalMesh, data: torch.Tensor,
     impl = resolve_impl(mesh, impl)
     g, dl, lo = mesh.num_shards, mesh.local_shards, mesh.first_shard
     if counts_host is None:
+        t0 = time.perf_counter_ns()
         local = send_counts.to("cpu", torch.int64).numpy()
         counts_host = allgather_host(mesh, local).reshape(g, g)
+        if trace_mod.counting():
+            trace_mod.count("exchange.fence_ns", time.perf_counter_ns() - t0)
     mat_host = np.asarray(counts_host, dtype=np.int64).reshape(g, g)
     mat = torch.from_numpy(mat_host.astype(np.int32)).to(data.device)
     if output is None:

@@ -26,6 +26,7 @@ For tests and for one card, several processes share a device: each holds
 
 from __future__ import annotations
 
+import datetime
 import logging
 import socket
 from typing import Optional, Sequence, Tuple
@@ -46,7 +47,8 @@ _MESH: Optional[GlobalMesh] = None
 def init_multihost(coordinator_address: str, num_processes: int,
                    process_id: int,
                    local_device_count: Optional[int] = None,
-                   platform: Optional[str] = None) -> None:
+                   platform: Optional[str] = None,
+                   timeout: Optional[float] = None) -> None:
     """Join the process group and build this process's ``GlobalMesh``.
     Every process calls it once, with the same ``coordinator_address``
     (``host:port`` or a ``tcp://`` URL; process 0 listens there).
@@ -56,7 +58,12 @@ def init_multihost(coordinator_address: str, num_processes: int,
     ``"cuda"`` (the default; raises without a card) or ``"cpu"``. On
     ``cuda`` the process takes card ``process_id % device_count``; where
     every rank has a card of its own, an NCCL group joins the gloo
-    control group as the data group of the collective transports."""
+    control group as the data group of the collective transports.
+
+    ``timeout`` (seconds) bounds every collective of both groups, the
+    joining included: a peer that died or stopped answering raises after
+    it rather than after torch's 30 minutes. On any failure here the
+    process leaves the group, so a later call can build a mesh again."""
     global _MESH
     if _MESH is not None:
         raise RuntimeError("init_multihost was already called")
@@ -73,21 +80,28 @@ def init_multihost(coordinator_address: str, num_processes: int,
         torch.cuda.set_device(device)
     url = (coordinator_address if "://" in coordinator_address
            else f"tcp://{coordinator_address}")
+    bound = ({} if timeout is None
+             else {"timeout": datetime.timedelta(seconds=timeout)})
     dist.init_process_group("gloo", init_method=url,
-                            world_size=num_processes, rank=process_id)
-    group = dist.group.WORLD
-    peers = [None] * num_processes
-    dist.all_gather_object(peers, (local, socket.gethostname(), str(device)),
-                           group=group)
-    if len({p[0] for p in peers}) != 1:
-        raise ValueError(f"every process must hold the same number of "
-                         f"shards, got {[p[0] for p in peers]}")
-    data_group = None
-    if device.type == "cpu":
-        data_group = group
-    elif len({(host, dev) for _, host, dev in peers}) == num_processes:
-        # one card per rank: NCCL can form the collectives' group
-        data_group = dist.new_group(backend="nccl")
+                            world_size=num_processes, rank=process_id,
+                            **bound)
+    try:
+        group = dist.group.WORLD
+        peers = [None] * num_processes
+        dist.all_gather_object(peers, (local, socket.gethostname(),
+                                       str(device)), group=group)
+        if len({p[0] for p in peers}) != 1:
+            raise ValueError(f"every process must hold the same number of "
+                             f"shards, got {[p[0] for p in peers]}")
+        data_group = None
+        if device.type == "cpu":
+            data_group = group
+        elif len({(host, dev) for _, host, dev in peers}) == num_processes:
+            # one card per rank: NCCL can form the collectives' group
+            data_group = dist.new_group(backend="nccl", **bound)
+    except BaseException:
+        dist.destroy_process_group()
+        raise
     arena = (PeerArena(group, process_id, num_processes, device)
              if device.type == "cuda" else None)
     _MESH = GlobalMesh(num_processes, local, process_id, device, group,
@@ -96,15 +110,19 @@ def init_multihost(coordinator_address: str, num_processes: int,
 
 def shutdown_multihost() -> None:
     """Release the receive arena and leave the process group
-    (collective)."""
+    (collective). The process leaves the group even where a peer is gone
+    and the closing barrier raises, so ``init_multihost`` can build a new
+    mesh after it."""
     global _MESH
-    if _MESH is None:
+    mesh, _MESH = _MESH, None
+    if mesh is None:
         return
-    if _MESH.arena is not None:
-        _MESH.arena.close()
-    dist.barrier(group=_MESH.group)
-    dist.destroy_process_group()
-    _MESH = None
+    try:
+        if mesh.arena is not None:
+            mesh.arena.close()
+        dist.barrier(group=mesh.group)
+    finally:
+        dist.destroy_process_group()
 
 
 def _mesh() -> GlobalMesh:

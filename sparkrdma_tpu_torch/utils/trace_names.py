@@ -57,6 +57,7 @@ SPANS = frozenset({
     "chunked.pack",
     "chunked.slot_fill",
     "chunked.transport",
+    "exchange.arena_copy",
     "exchange.group",
     "exchange.pack",
     "exchange.receive_fill",

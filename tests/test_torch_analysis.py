@@ -60,7 +60,8 @@ PREFIX = re.compile(r"\bsparkrdma_tpu\b")
 # readers and chip_smoke.py select on by name
 STEP_SPANS = {
     "als.group", "als.solve", "chunked.land", "chunked.pack",
-    "chunked.slot_fill", "chunked.transport", "exchange.group",
+    "chunked.slot_fill", "chunked.transport", "exchange.arena_copy",
+    "exchange.group",
     "exchange.pack", "exchange.receive_fill", "exchange.slot_fill",
     "exchange.transport", "fused.counts", "fused.local_sort",
     "fused.receive_sort", "join.exchange", "join.merge", "mesh.take_rows",
