@@ -40,6 +40,14 @@ printing one JSON line; any failure raises and the exit code is not 0:
    counted with the launches it asks for (in the worker processes of the
    multihost and analysis phases too), each counted path's gather
    launches are held to its own calls, and the end holds the process's
+   launches to all of them; then kernel_merge: the receive merge kernel
+   ``run_merge`` (the ``range`` step's receive side) on the receive of a
+   range step at the main path's 1 GiB and at HiBench large's 3.2 GB,
+   byte for byte against ``sort_received`` (its plain version) and the
+   step's output, timed against its byte bound and ``sort_received``;
+   from here on every CUDA range step is counted (in the multihost
+   phase's worker processes too), each counted path's merge launches
+   are held to its own range steps, and the end holds the process's
    launches to all of them;
 4. main path: TeraSort of 1 GiB of 100-byte rows over an 8-shard virtual
    mesh with ``impl="auto"`` (the ragged kernel) and again with
@@ -241,12 +249,19 @@ from sparkrdma_tpu_torch.ops import (
     ragged_exchange,
     ring_exchange,
     row_gather,
+    run_merge,
 )
 from sparkrdma_tpu_torch.parallel.exchange import (
     bucket_quota,
     chunked_exchange,
 )
-from sparkrdma_tpu_torch.parallel import exchange, mesh, multihost, topology
+from sparkrdma_tpu_torch.parallel import (
+    device_plane,
+    exchange,
+    mesh,
+    multihost,
+    topology,
+)
 from sparkrdma_tpu_torch.parallel.device_plane import (
     auto_rows_per_round,
     run_fused_exchange,
@@ -319,11 +334,27 @@ PATH_RING_SHAPES = ((8, 8, 131072, 2), (8, 8, 262144, 2), (8, 8, 14746, 2),
                     (4, 4, 336595, 25), (4, 4, 336682, 25), (8, 8, 819, 3),
                     (8, 8, 25000, 5), (8, 8, 29, 3))
 # csrc/ sources: the ring and ragged kernels are in one, the row gather
-# in the other
-KERNELS = ("ring_exchange", "row_gather")
+# and the receive merge each in one of their own
+KERNELS = ("ring_exchange", "row_gather", "run_merge")
 RING = "ring_all_to_all"
 NATIVE = "ragged_all_to_all"
 GATHER = "row_gather"
+MERGE = "run_merge"
+# the receive merge's cases: (name, shards, rows a shard, row words), the
+# receive of a range step over rows made on the card: the main path's
+# 1 GiB TeraSort and the benchmark's HiBench large
+MERGE_CASES = (
+    ("terasort.1gib", 8, 1024 * 1024 * 1024 // 100 // 8, 25),
+    ("terasort.hibench_large", 8, 4_000_000, 25),
+)
+# CUDA range steps over more than one shard run in this process, counted
+# by the wrapper _count_range_steps installs: each merges once; the
+# merge's launches of the process, banked from run_merge.LAUNCHES each
+# time _launches zeroes it; its launches per counted path, set by
+# _launches
+RANGE_STEPS = {"calls": 0}
+MERGE_BANKED = {"launches": 0}
+MERGE_OF_PATH: dict = {}
 # the row gather's cases: (name, D, N, K, row words, indices), indices
 # "group" (a stable sort of random destinations, the first third of the
 # rows live where K = 3 x the live rows) or "perm" (a random permutation
@@ -931,6 +962,126 @@ def _count_take_rows() -> None:
             mod.take_rows = counted
 
 
+def _range_receive(d: int, n: int, w: int, seed: int):
+    """The receive buffer and counts that one TeraSort range step over
+    rows made on the card hands the merge, and the step's output."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.randint(-2**31, 2**31, (d, n, w), dtype=torch.int32,
+                         device="cuda", generator=gen)
+    kept = []
+    inner = run_merge.merge_runs
+
+    def keep(received, counts):
+        kept.append((received, counts))
+        return inner(received, counts)
+    run_merge.merge_runs = keep
+    try:
+        out, _, overflowed = make_terasort_step(
+            VirtualMesh(d), TeraSortConfig(rows_per_device=n,
+                                           payload_words=w - 1))(rows)
+    finally:
+        run_merge.merge_runs = inner
+    if bool(overflowed.any()):
+        raise AssertionError(f"the range step at {(d, n, w)} overflowed")
+    return kept[0], out
+
+
+def phase_kernel_merge() -> dict:
+    """The receive merge kernel at ``MERGE_CASES``, on the receive buffer
+    and counts of a range step's own exchange: byte for byte against
+    ``sort_received`` (the stable key sort of the whole buffer it
+    replaced, and the merge's plain version, which the CPU runs) and the
+    step's output, one launch a call; timed against the bytes
+    ``fused.merge_bytes`` counts at the card's memory rate and against
+    ``sort_received`` (its ``torch.sort`` and row gather: ``plain_ms``
+    and ``library_ms`` both). Returns the kernel's row; the phase's own
+    launches leave ``run_merge.LAUNCHES`` as it was."""
+    first = run_merge.LAUNCHES
+    by_shape = []
+    for i, (name, d, n, w) in enumerate(MERGE_CASES):
+        (received, counts), out = _range_receive(d, n, w, 400 + i)
+        before = run_merge.LAUNCHES
+        got = run_merge.merge_runs(received, counts)
+        want = device_plane.sort_received(received, counts)
+        torch.cuda.synchronize()
+        if run_merge.LAUNCHES != before + 1:
+            raise AssertionError(f"run_merge launched "
+                                 f"{run_merge.LAUNCHES - before} times at "
+                                 f"{name}")
+        for other, label in ((want, "sort_received"),
+                             (out, "the step's output")):
+            if not torch.equal(got, other):
+                raise AssertionError(f"run_merge != {label} at {name}")
+        err = _max_abs_err(got, want)
+        del got, want, out
+        torch.cuda.empty_cache()
+        row_bytes = w * 4
+        live = int(counts.sum())
+        moved = (live + d * received.shape[1]) * row_bytes
+        ms = cuda_ms(lambda: run_merge.merge_runs(received, counts), 5, 5)
+        sort_ms = cuda_ms(lambda: device_plane.sort_received(received,
+                                                             counts), 3, 3)
+        entry = {"case": name, "shape": list(received.shape), "runs": d,
+                 "live_rows": live, "bytes_moved": moved, "ms": ms,
+                 "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                 "plain_ms": sort_ms, "library_ms": sort_ms,
+                 "max_abs_err": err}
+        entry["roofline_share"] = entry["bound_ms"] / ms
+        entry["vs_library"] = entry["library_ms"] / ms
+        by_shape.append(entry)
+        emit({"phase": "kernel_merge", **entry})
+        del received, counts
+        torch.cuda.empty_cache()
+    run_merge.LAUNCHES = first
+    main = by_shape[-1]
+    return {"name": MERGE, "route": "cuda",
+            "source": "sparkrdma_tpu_torch/csrc/run_merge.cu",
+            "replaces": None, "launches": 0,
+            "max_abs_err": max(e["max_abs_err"] for e in by_shape),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": main["library_ms"], "by_shape": by_shape}
+
+
+def _count_range_steps() -> None:
+    """Count each call of a CUDA ``range`` step over more than one shard
+    in ``RANGE_STEPS``: every module of the port that holds
+    ``make_fused_step`` gets a wrapper whose steps count their calls."""
+    inner = device_plane.make_fused_step
+
+    def counted(mesh_, row_words, **kw):
+        step = inner(mesh_, row_words, **kw)
+        if (kw.get("partition", "range") != "range"
+                or mesh_.num_shards == 1
+                or torch.device(mesh_.device).type != "cuda"):
+            return step
+
+        def run(*args, **kwargs):
+            RANGE_STEPS["calls"] += 1
+            return step(*args, **kwargs)
+        return run
+    for mod in list(sys.modules.values()):
+        if (getattr(mod, "__name__", "").startswith("sparkrdma_tpu_torch")
+                and getattr(mod, "make_fused_step", None) is inner):
+            mod.make_fused_step = counted
+
+
+def _bank_merge_counts() -> None:
+    """Add ``run_merge.LAUNCHES`` to ``MERGE_BANKED`` and set it to 0."""
+    MERGE_BANKED["launches"] += run_merge.LAUNCHES
+    run_merge.LAUNCHES = 0
+
+
+def _check_merge_launches() -> None:
+    """Raise unless the merge launched once for each CUDA range step this
+    process ran since the counter was installed."""
+    _bank_merge_counts()
+    if MERGE_BANKED["launches"] != RANGE_STEPS["calls"]:
+        raise AssertionError(
+            f"run_merge launched {MERGE_BANKED['launches']} times after its "
+            f"phase; {RANGE_STEPS['calls']} CUDA range steps ran")
+
+
 def _bank_gather_counts() -> None:
     """Add ``row_gather.LAUNCHES`` and ``SHAPES`` to ``GATHER_BANKED`` and
     set them to 0."""
@@ -1251,27 +1402,36 @@ def phase_bench(table: dict) -> dict:
 
 
 def _launches(path: str, fn, kernel: str = NATIVE):
-    """``fn()`` with both transport kernels' and the row gather's launch
-    counts set to 0 just before it and read just after; raises if the
-    path never launched ``kernel`` (``impl="auto"`` on the card is the
-    ragged kernel), launched the other one, or launched the row gather
-    other than its CUDA ``take_rows`` calls asked (the gather runs beside
-    either transport). The path's gather launches go to
-    ``GATHER_OF_PATH``. Returns ``(fn(), launches, launches per
-    shape)``."""
+    """``fn()`` with both transport kernels', the row gather's and the
+    merge's launch counts set to 0 just before it and read just after;
+    raises if the path never launched ``kernel`` (``impl="auto"`` on the
+    card is the ragged kernel), launched the other one, launched the row
+    gather other than its CUDA ``take_rows`` calls asked (the gather runs
+    beside either transport), or the merge other than once for each of
+    its CUDA range steps. The path's gather and merge launches go to
+    ``GATHER_OF_PATH`` and ``MERGE_OF_PATH``. Returns ``(fn(),
+    launches, launches per shape)``."""
     for mod in COUNTERS.values():
         mod.LAUNCHES = 0
         mod.SHAPES.clear()
     _bank_gather_counts()
+    _bank_merge_counts()
     asked = TAKE_ROWS["launches"]
+    steps = RANGE_STEPS["calls"]
     out = fn()
     torch.cuda.synchronize()
     asked = TAKE_ROWS["launches"] - asked
+    steps = RANGE_STEPS["calls"] - steps
     if row_gather.LAUNCHES != asked:
         raise AssertionError(
             f"the {path} path launched row_gather {row_gather.LAUNCHES} "
             f"times; its CUDA take_rows calls asked for {asked}")
+    if run_merge.LAUNCHES != steps:
+        raise AssertionError(
+            f"the {path} path launched run_merge {run_merge.LAUNCHES} "
+            f"times; it ran {steps} CUDA range steps")
     GATHER_OF_PATH[path] = row_gather.LAUNCHES
+    MERGE_OF_PATH[path] = run_merge.LAUNCHES
     launched = {name: mod.LAUNCHES for name, mod in COUNTERS.items()}
     if launched[kernel] == 0:
         raise AssertionError(f"the {path} path never launched {kernel}")
@@ -2577,6 +2737,7 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
                              local_device_count=MH_LOCAL_SHARDS,
                              platform="cuda")
     _count_take_rows()
+    _count_range_steps()
     mesh = multihost.global_mesh("shuffle")
     dl, g = mesh.local_shards, mesh.num_shards
     report = {"rank": rank, "init_s": time.perf_counter() - t_start}
@@ -2611,12 +2772,14 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
         del ts_out, per
         run = report["terasort"].setdefault(impl, {
             "path": path, "kernel": kernel, "wall_s": [], "rows": rows,
-            "digests": digests, "kernel_launches": 0, "kernel_shapes": {}})
+            "digests": digests, "kernel_launches": 0, "kernel_shapes": {},
+            "merge_launches": 0})
         if digests != run["digests"]:
             raise AssertionError(f"process {rank}: two TeraSort runs under "
                                  f"{impl} differ")
         run["wall_s"].append(wall)
         run["kernel_launches"] += launches
+        run["merge_launches"] += MERGE_OF_PATH[path]
         for k, v in shapes.items():
             run["kernel_shapes"][k] = run["kernel_shapes"].get(k, 0) + v
         shapes_seen[kernel].update(shapes)
@@ -2719,6 +2882,7 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
     report["kernel_checks"] = [
         _peer_shape_check(mesh, shape, 50 + i)
         for i, shape in enumerate(sorted(shapes_seen[RING]))]
+    _check_merge_launches()
     report["ipc"] = dict(ring_exchange.PEER)
     report["wall_s"] = time.perf_counter() - t_start
     multihost.shutdown_multihost()
@@ -2829,6 +2993,12 @@ def phase_multihost(table: dict, cfg: TeraSortConfig,
                  "one_shot"]),
              "multihost/mesh_rounds": (NATIVE, lambda r: r["mesh"]["runs"][
                  "rounds"])}
+    for impl, path in (("auto", "multihost/terasort"),
+                       ("ring", "multihost/terasort_ring")):
+        MERGE_OF_PATH[path] = sum(r["terasort"][impl]["merge_launches"]
+                                  for r in reports)
+        if not MERGE_OF_PATH[path]:
+            raise AssertionError(f"the {path} path never launched {MERGE}")
     by_shape = {NATIVE: collections.defaultdict(dict),
                 RING: collections.defaultdict(dict)}
     for path, (kernel, pick) in paths.items():
@@ -3355,6 +3525,8 @@ def main() -> None:
     _count_take_rows()
     table = {RING: phase_kernel(cfg), NATIVE: phase_kernel_native(cfg)}
     gather_row = phase_kernel_gather()
+    merge_row = phase_kernel_merge()
+    _count_range_steps()
     launches = phase_main_path(cfg, table)
     launches.update(phase_streamed(cfg, table))
     launches.update(phase_bench(table))
@@ -3407,6 +3579,14 @@ def main() -> None:
     gather_row["shapes"] = [[list(k), n] for k, n in
                             sorted(GATHER_BANKED["shapes"].items())]
     table[GATHER] = gather_row
+    _check_merge_launches()
+    for path in ("terasort", "terasort/ring"):
+        if not MERGE_OF_PATH[path]:
+            raise AssertionError(f"the {path} path never launched {MERGE}")
+    mine = {path: n for path, n in MERGE_OF_PATH.items() if n}
+    merge_row["launches"] = sum(mine.values())
+    merge_row["launches_by_path"] = mine
+    table[MERGE] = merge_row
     emit({"kernels": list(table.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

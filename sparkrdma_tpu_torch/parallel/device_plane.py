@@ -17,7 +17,9 @@ int32 rows, keys compared as zero-extended int64 (``utils.u32``).
   ``fused.counts``, ``exchange.receive_fill`` (the receive buffer's
   zero fill), the exchange's own (``exchange.transport``, and
   ``exchange.slot_fill``/``exchange.pack`` on the slot transports) and
-  ``fused.receive_sort``; every row gather inside is a ``mesh.take_rows``.
+  ``fused.receive_sort`` (on the ``range`` partition the merge of the
+  received runs, ``ops/run_merge.py``, whose bytes ``fused.merge_bytes``
+  counts); every row gather inside is a ``mesh.take_rows``.
   So a ``torch.profiler`` trace splits the step's device time by layer,
   and with no profiler running the spans cost a flag check.
 * ``run_fused_exchange(_rounds)``: the host driver, bounded rounds sized
@@ -51,6 +53,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.ops import run_merge
 from sparkrdma_tpu_torch.ops.partition import uniform_splitters
 from sparkrdma_tpu_torch.parallel import topology as topology_mod
 from sparkrdma_tpu_torch.parallel.exchange import (
@@ -351,6 +354,22 @@ def _row_keys(rows: torch.Tensor, key_words: int):
     return (to_u64(rows[:, :, 1]), to_u64(rows[:, :, 0]))
 
 
+def sort_received(received: torch.Tensor, recv_counts: torch.Tensor,
+                  key_words: int = 1, sort_mode: str = "gather"
+                  ) -> torch.Tensor:
+    """Key-sort received rows ``[D, R, W]`` with pads (index >= the
+    receiver's ``recv_counts`` total) masked to the sentinel on every key
+    word so they sort last; stable order within equal keys is arrival
+    (source-major) order. Single-word keys are written back into column
+    0, so pads show the sentinel."""
+    total = recv_counts.sum(dim=1)
+    idx = torch.arange(received.shape[1], device=received.device)
+    pad = idx[None, :] >= total[:, None]
+    keys = tuple(k.masked_fill(pad, SENTINEL)
+                 for k in _row_keys(received, key_words))
+    return _local_sort(received, keys, sort_mode, key_words == 1)[0]
+
+
 def make_fused_step(mesh: VirtualMesh, row_words: int, *,
                     out_factor: int = 2, impl: str = "auto",
                     sort_mode: str = "gather", key_words: int = 1,
@@ -364,8 +383,12 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
 
     * ``"range"`` — uniform u32 key-range split (TeraSort): ONE key sort
       doubles as the destination grouping, and per-destination counts
-      come from D-1 binary searches. ``step(rows)`` with ``rows:
-      int32[D, cap, row_words]``, key = column 0.
+      come from D-1 binary searches. Each receiver then holds one
+      key-sorted run a source, which ``ops/run_merge.py`` merges (the
+      hand-written merge kernel on ``cuda``, for at most
+      ``run_merge.MAX_RUNS`` = 32 sources) where the ``dest`` step sorts.
+      ``step(rows)`` with ``rows: int32[D, cap, row_words]``, key =
+      column 0.
     * ``"dest"`` — caller-computed destinations: ``step(rows, dest,
       slot_rows=None)`` with ``dest: int[D, cap]``; ``dest < 0`` marks
       padding rows (not sent); ``slot_rows`` sizes the slot transports'
@@ -398,15 +421,26 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
     splitters = (uniform_splitters(n, mesh.device) if partition == "range"
                  else None)
 
-    def sort_received(received, total):
-        """Key-sort received rows with pads (index >= total) masked to
-        the sentinel on every key word so they sort last; stable order
-        within equal keys is arrival (source-major) order."""
-        idx = torch.arange(received.shape[1], device=received.device)
-        pad = idx[None, :] >= total[:, None]
-        keys = tuple(k.masked_fill(pad, SENTINEL)
-                     for k in _row_keys(received, key_words))
-        return _local_sort(received, keys, sort_mode, write_back)[0]
+    def merge_received(received, recv_counts):
+        """The range step's receive: each source's rows arrive as one
+        key-sorted run, so the stable merge of the runs is
+        ``sort_received``'s result. (A slot pair past its slot packs the
+        runs off their counts' offsets: the receiver is flagged, and its
+        rows are the buffer's in no set order.) While profiled,
+        ``fused.merge_bytes`` counts the bytes the merge must move: each
+        received row read and every output row written."""
+        if trace_mod.counting():
+            row_bytes = received.shape[2] * received.element_size()
+            trace_mod.count("fused.merge_bytes", recv_counts, row_bytes)
+            trace_mod.count("fused.merge_bytes",
+                            received.shape[0] * received.shape[1] * row_bytes)
+        return run_merge.merge_runs(received, recv_counts)
+
+    def sort_received_rows(received, recv_counts):
+        return sort_received(received, recv_counts, key_words, sort_mode)
+
+    order_received = (merge_received if partition == "range"
+                      else sort_received_rows)
 
     def exchange_and_sort(grouped, counts, slot_rows=None):
         with trace_mod.span("exchange.receive_fill"):
@@ -417,7 +451,7 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
             mesh, grouped, counts, output=output, impl=impl,
             slot_rows=slot_rows)
         with trace_mod.span("fused.receive_sort"):
-            sorted_rows = sort_received(received, recv_counts.sum(dim=1))
+            sorted_rows = order_received(received, recv_counts)
         return sorted_rows, recv_counts, overflowed
 
     def no_exchange(rows, valid):

@@ -24,7 +24,8 @@ nested in it; otherwise its range leaves the nested span's kernels out.
 
 ``counting()`` and ``count(name, amount)`` keep byte counts at the same
 boundaries (``gather.bytes`` in ``parallel.mesh.take_rows``,
-``exchange.bytes`` in the ragged exchange). They count only while a
+``exchange.bytes`` in the ragged exchange, ``fused.merge_bytes`` in the
+range step's receive merge). They count only while a
 profiler records, and the first counted call after one made with no
 profiler running starts every counter again from zero, so ``counts()``
 holds exactly the last profiled window. A count is a host integer or a

@@ -10,7 +10,11 @@ engine job; the ragged all-to-all kernel (the ``native`` transport)
 against its plain version and the ``gather`` transport, inside guard
 words, at every alignment, at the shard limit and replayed in a CUDA
 graph, its range launches from a later source into one local tensor,
-and its cross-process exchange in two processes sharing the card.
+and its cross-process exchange in two processes sharing the card; the
+receive merge kernel (``ops/run_merge.py``) against ``sort_received``,
+at the count edges, an unaligned view and TeraSort's receive of HiBench
+large from a range exchange, in bounds on runs that are not sorted, and
+a ring or dense range step with a slot pair past its slot refused.
 Marked ``cuda``; each skips with a reason where there is no
 card. This file imports no JAX, so it runs on a
 machine without it:
@@ -978,3 +982,163 @@ def test_two_process_native_exchange_on_card(cuda):
             p.kill()
     for i, out in enumerate(outs):
         assert f"NATIVE_IPC_OK {i}" in out, out[-3000:]
+
+
+# -- the range step's receive merge (ops/run_merge.py) -----------------------
+
+def _merge_on_card(received, counts):
+    """The kernel on the card against ``sort_received`` there, byte for
+    byte, one launch a call."""
+    from sparkrdma_tpu_torch.ops import run_merge as rm
+    from sparkrdma_tpu_torch.parallel import device_plane
+
+    before = rm.LAUNCHES
+    got = rm.merge_runs(received, counts)
+    torch.cuda.synchronize()
+    assert rm.LAUNCHES == before + 1
+    assert torch.equal(got, device_plane.sort_received(received, counts))
+    return got
+
+
+@pytest.mark.parametrize("kind", ["uniform", "ties", "max_key"])
+@pytest.mark.parametrize("case", ["random", "empty_runs", "one_receiver",
+                                  "overflow"])
+@pytest.mark.parametrize("d,s,w", [(2, 2, 1), (5, 5, 3), (8, 8, 25),
+                                   (3, 8, 2), (8, 8, 4), (2, 32, 1)])
+def test_run_merge_kernel_is_the_sort(cuda, kind, case, d, s, w):
+    """At D = 2, 5, 8 receivers of S runs (3 of 8 as a ``GlobalMesh``
+    process holds, 32 runs: a lane each), W = 1, 2, 3, 4, 25 words (the
+    kernel's 4-, 8- and 16-byte chunks), buffers of several tiles, keys
+    that tie across runs and with the pads' sentinel, empty runs, every
+    row to one receiver and a receive past the buffer."""
+    from test_torch_run_merge import _counts, _received
+
+    from sparkrdma_tpu_torch.ops import run_merge as rm
+
+    rows = 2 * rm.TILE_ROWS + 37
+    counts = _counts(d, s, case, rows, seed=d * s + w)
+    received = _received(counts, rows, w, kind, seed=s + w)
+    _merge_on_card(received.to(cuda), torch.from_numpy(counts).to(cuda))
+
+
+def test_run_merge_at_an_unaligned_view(cuda):
+    """Rows 4 bytes into their storage: 4-byte chunks at 16-byte rows."""
+    from test_torch_run_merge import _counts, _received
+
+    counts = _counts(4, 4, "random", 5000, seed=1)
+    received = _received(counts, 5000, 4, "ties", seed=2).to(cuda)
+    flat = torch.empty(1 + received.numel(), dtype=torch.int32, device=cuda)
+    view = flat[1:].view(received.shape)
+    view.copy_(received)
+    assert view.data_ptr() % 16
+    got = _merge_on_card(view, torch.from_numpy(counts).to(cuda))
+    from sparkrdma_tpu_torch.ops import run_merge as rm
+    assert torch.equal(got, rm.merge_runs(received, torch.from_numpy(
+        counts).to(cuda)))
+
+
+def test_run_merge_at_terasorts_shape_from_a_range_exchange(cuda,
+                                                             monkeypatch):
+    """HiBench large's ``[8, 8M, 25]`` receive, counts from the range
+    step's own exchange on the card: the step's output is the kernel's,
+    and both equal ``sort_received`` of the same buffer."""
+    from sparkrdma_tpu_torch.models.terasort import (
+        TeraSortConfig,
+        make_terasort_step,
+    )
+    from sparkrdma_tpu_torch.ops import run_merge as rm
+    from sparkrdma_tpu_torch.parallel import device_plane
+    from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+
+    kept = []
+    inner = rm.merge_runs
+
+    def keep(received, counts):
+        kept.append((received, counts))
+        return inner(received, counts)
+    monkeypatch.setattr(rm, "merge_runs", keep)
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    rows = torch.randint(-2**31, 2**31, (8, 4_000_000, 25),
+                         dtype=torch.int32, device=cuda, generator=gen)
+    step = make_terasort_step(VirtualMesh(8), TeraSortConfig(4_000_000))
+    before = rm.LAUNCHES
+    out, counts, overflowed = step(rows)
+    del rows
+    assert rm.LAUNCHES == before + 1 and not overflowed.any()
+    received, got_counts = kept[0]
+    assert received.shape == (8, 8_000_000, 25)
+    assert torch.equal(got_counts, counts)
+    want = device_plane.sort_received(received, counts)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("case", ["random", "empty_runs", "one_receiver",
+                                  "overflow"])
+def test_run_merge_stays_in_bounds_on_unsorted_runs(cuda, case):
+    """Runs that are not sorted, over several tiles: the kernel makes no
+    merge of them, and faults nowhere: every output row is a row of its
+    receiver's buffer or a pad row, and the card takes the next call."""
+    from test_torch_run_merge import _counts, _rows_of_buffer_or_pads
+
+    from sparkrdma_tpu_torch.ops import run_merge as rm
+
+    rows = 2 * rm.TILE_ROWS + 37
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    received = torch.randint(-2**31, 2**31, (3, rows, 2), dtype=torch.int32,
+                             device=cuda, generator=gen)
+    received[:, :, 0] = torch.randint(0, 6, (3, rows), dtype=torch.int32,
+                                      device=cuda, generator=gen)
+    counts = torch.from_numpy(_counts(3, 8, case, rows, seed=3)).to(cuda)
+    got = rm.merge_runs(received, counts)
+    torch.cuda.synchronize()
+    assert _rows_of_buffer_or_pads(got.cpu(), received.cpu())
+    sorted_keys = torch.sort(received, dim=1).values
+    _merge_on_card(sorted_keys, torch.tensor([[rows]] * 3, dtype=torch.int32,
+                                             device=cuda))
+
+
+@pytest.mark.parametrize("impl", ["ring", "dense"])
+def test_range_step_with_a_slot_pair_past_its_slot(cuda, impl, monkeypatch):
+    """A ring or dense range step over 8 shards whose source 0 sends past
+    its slot into receiver 1: the merge faults nowhere, the step flags
+    the receiver, ``run_terasort`` raises its ``OverflowError``, and the
+    card takes the next step."""
+    from test_torch_run_merge import (
+        _pair_past_its_slot,
+        _rows_of_buffer_or_pads,
+    )
+
+    from sparkrdma_tpu_torch.models.terasort import (
+        TeraSortConfig,
+        make_terasort_step,
+        run_terasort,
+    )
+    from sparkrdma_tpu_torch.ops import run_merge as rm
+    from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
+    from sparkrdma_tpu_torch.utils.u32 import rows_from_numpy
+
+    d, cap, w = 8, 3000, 3
+    mesh = VirtualMesh(d, cuda)
+    cfg = TeraSortConfig(cap, payload_words=w - 1)
+    rows = _pair_past_its_slot(d, cap, w, seed=11)
+    kept = []
+    inner = rm.merge_runs
+
+    def keep(received, counts):
+        kept.append(received)
+        return inner(received, counts)
+    monkeypatch.setattr(rm, "merge_runs", keep)
+    out, counts, overflowed = make_terasort_step(mesh, cfg, impl)(
+        rows_from_numpy(rows, mesh))
+    torch.cuda.synchronize()
+    assert int(counts[1, 0]) > 2 * cap // d
+    assert bool(overflowed[1]) and not bool(overflowed[0])
+    assert _rows_of_buffer_or_pads(out.cpu(), kept[0].cpu())
+    with pytest.raises(OverflowError, match="out_factor"):
+        run_terasort(mesh, cfg, impl, rows=rows)
+    fine = _pair_past_its_slot(d, cap, w, seed=11)
+    fine[:, 0] = np.random.default_rng(12).integers(0, 2**32, d * cap,
+                                                    dtype=np.uint64)
+    got, _, _ = run_terasort(mesh, cfg, impl, rows=fine)
+    assert (np.diff(got.reshape(d, 2 * cap, w)[:, :, 0].astype(np.int64),
+                    axis=1) >= 0).all()

@@ -52,6 +52,7 @@ PORTED = (
     "ops/ragged_exchange.py",
     "ops/ring_exchange.py",
     "ops/row_gather.py",
+    "ops/run_merge.py",
     "ops/sort.py",
     "parallel/device_plane.py",
     "parallel/exchange.py",

@@ -282,8 +282,10 @@ def _ctx(spans_us: dict, jobs: int = 2) -> harness.Context:
 
 GB = 10**9
 SPANS = {"mesh.take_rows": 8000.0, "exchange.receive_fill": 600.0,
-         "exchange.group": 3000.0, "q95.aggregate.sort": 4200.0}
-COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB}
+         "exchange.group": 3000.0, "q95.aggregate.sort": 4200.0,
+         "fused.receive_sort": 9000.0}
+COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB,
+          "fused.merge_bytes": 2 * 9.6 * GB}
 
 
 @pytest.mark.parametrize("metric,want", [
@@ -295,6 +297,9 @@ COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB}
     ("exchange.gb", 3.0),
     # 6 GB at 3.35 TB/s over 4 ms
     ("gather_roofline", 100 * 6 * GB / 3.35e12 / 4e-3),
+    # 9.6 GB at 3.35 TB/s over 4.5 ms
+    ("device_plane.receive_merge_roofline",
+     100 * 9.6 * GB / 3.35e12 / 4.5e-3),
 ])
 def test_a_reader_on_a_synthetic_summary(metric, want, monkeypatch):
     reader = harness.load_readers()[metric]
