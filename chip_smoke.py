@@ -251,6 +251,7 @@ from sparkrdma_tpu_torch.ops import (
     row_gather,
     run_merge,
 )
+from sparkrdma_tpu_torch.ops.sort import sort_received
 from sparkrdma_tpu_torch.parallel.exchange import (
     bucket_quota,
     chunked_exchange,
@@ -1002,7 +1003,7 @@ def phase_kernel_merge() -> dict:
         (received, counts), out = _range_receive(d, n, w, 400 + i)
         before = run_merge.LAUNCHES
         got = run_merge.merge_runs(received, counts)
-        want = device_plane.sort_received(received, counts)
+        want = sort_received(received, counts)
         torch.cuda.synchronize()
         if run_merge.LAUNCHES != before + 1:
             raise AssertionError(f"run_merge launched "
@@ -1019,8 +1020,7 @@ def phase_kernel_merge() -> dict:
         live = int(counts.sum())
         moved = (live + d * received.shape[1]) * row_bytes
         ms = cuda_ms(lambda: run_merge.merge_runs(received, counts), 5, 5)
-        sort_ms = cuda_ms(lambda: device_plane.sort_received(received,
-                                                             counts), 3, 3)
+        sort_ms = cuda_ms(lambda: sort_received(received, counts), 3, 3)
         entry = {"case": name, "shape": list(received.shape), "runs": d,
                  "live_rows": live, "bytes_moved": moved, "ms": ms,
                  "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
@@ -1049,8 +1049,8 @@ def _count_range_steps() -> None:
     ``make_fused_step`` gets a wrapper whose steps count their calls."""
     inner = device_plane.make_fused_step
 
-    def counted(mesh_, row_words, **kw):
-        step = inner(mesh_, row_words, **kw)
+    def counted(mesh_, **kw):
+        step = inner(mesh_, **kw)
         if (kw.get("partition", "range") != "range"
                 or mesh_.num_shards == 1
                 or torch.device(mesh_.device).type != "cuda"):

@@ -20,10 +20,12 @@ Where it differs from ``bench.py``, and why:
   not its 8 virtual shards: ``bench.py`` divides by
   ``len(jax.devices())``, one per chip. ``detail`` records ``devices``
   and ``shards``.
-- One sort mode: the JAX package's three ``sort_mode``s are one
-  implementation here (``parallel/device_plane.py::_local_sort``), so
-  the watchdog runs ``gather``, or ``BENCH_SORT_MODE`` when it names a
-  mode. ``BENCH_TIMEOUT_MULTISORT_S`` has no counterpart.
+- One sort: the JAX package's three local-sort strategies (``gather``,
+  ``multisort``, ``colsort``) are one implementation here
+  (``ops/sort.py::sort_rows``), so the watchdog runs one TeraSort phase,
+  labelled ``gather`` (``SORT_MODE``) in the record's keys that mirror
+  ``bench.py``'s per-strategy ones. Its strategy knob and
+  ``BENCH_TIMEOUT_MULTISORT_S`` have no counterpart.
 - No fallback that hides the card: when the probe finds no card, or a
   phase crashes or times out, the watchdog prints the zero-value error
   record and exits 1. A CPU run happens only when the caller asks for it
@@ -34,7 +36,7 @@ Where it differs from ``bench.py``, and why:
   lives there too.
 
 Knobs (``bench.py``'s): ``BENCH_SIZE_MB`` (1024), ``BENCH_REPS`` (5),
-``BENCH_SORT_MODE``, ``BENCH_IMPL`` (``auto``: the ring on ``cuda``),
+``BENCH_IMPL`` (``auto``: the ring on ``cuda``),
 ``BENCH_LIGHT``, ``BENCH_SECONDARY``, ``BENCH_SKIP_SECONDARY``,
 ``BENCH_FORCE_CPU``, ``BENCH_PROBE_TIMEOUT_S`` (60), ``BENCH_TIMEOUT_S``
 (540 a phase), ``BENCH_TIMEOUT_SECONDARY_S``, ``BENCH_SLICE_TOPOLOGY``,
@@ -54,6 +56,9 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 METRIC = "terasort_shuffle_throughput_per_chip"
 SHARDS = 8  # the virtual mesh every path of the port uses on one card
+# the label of the one sort in the record's per-strategy keys, which
+# mirror bench.py's
+SORT_MODE = "gather"
 
 
 def _probe_device(timeout_s: int = 60) -> tuple[str | None, str]:
@@ -107,34 +112,22 @@ def _run_phase(env: dict, label: str, env_overrides: dict,
                   + proc.stderr.decode(errors="replace")[-400:])
 
 
-def _run_inner(env: dict, mode: str,
-               timeout_s: int) -> tuple[Optional[dict], str]:
-    """One sort-mode run, light: the baseline + secondary workloads run
-    in their own phase (see _run_secondary)."""
-    return _run_phase(env, mode, {"BENCH_SORT_MODE": mode,
-                                  "BENCH_LIGHT": "1"}, timeout_s)
+def _run_inner(env: dict, timeout_s: int) -> tuple[Optional[dict], str]:
+    """The TeraSort run, light: the baseline + secondary workloads run in
+    their own phase (see _run_secondary)."""
+    return _run_phase(env, SORT_MODE, {"BENCH_LIGHT": "1"}, timeout_s)
 
 
 def _run_secondary(env: dict, timeout_s: int) -> tuple[Optional[dict], str]:
     """Baseline + secondary workloads in their own budgeted subprocess."""
-    env = dict(env)
-    env.pop("BENCH_SORT_MODE", None)
     return _run_phase(env, "secondary", {"BENCH_SECONDARY": "1"}, timeout_s)
-
-
-def _sort_mode() -> str:
-    """``BENCH_SORT_MODE`` when it names a mode, else ``gather``."""
-    from sparkrdma_tpu_torch.parallel.device_plane import SORT_MODES
-
-    mode = os.environ.get("BENCH_SORT_MODE", "")
-    return mode if mode in SORT_MODES else "gather"
 
 
 def _run_with_watchdog() -> int:
     """Run the bench in budgeted subprocesses with hard timeouts.
 
     Probe the card first (<= ``BENCH_PROBE_TIMEOUT_S``) unless the caller
-    forced the CPU, then run the sort mode in its own subprocess, then
+    forced the CPU, then run TeraSort in its own subprocess, then
     the baseline and secondary workloads in another. Any failure prints
     the zero-value error record and returns 1: there is no fallback.
     """
@@ -145,10 +138,9 @@ def _run_with_watchdog() -> int:
         platform, probe_failure = _probe_device(probe_s)
         if platform is None:
             return _emit_error(probe_failure + "; full bench skipped")
-    mode = _sort_mode()
-    # the mode runs "light" (terasort timing only); the baseline and
+    # TeraSort runs "light" (its timing only); the baseline and
     # secondary workloads get their own subprocess + budget below
-    result, failure = _run_inner(env, mode, mode_timeout_s)
+    result, failure = _run_inner(env, mode_timeout_s)
     if result is None:
         return _emit_error(failure)
     detail = result["detail"]
@@ -163,9 +155,10 @@ def _run_with_watchdog() -> int:
     if not result.get("vs_baseline") and detail.get("cpu_baseline_s"):
         result["vs_baseline"] = round(
             detail["cpu_baseline_s"] / detail["tpu_step_s"], 3)
-    detail["sort_mode"] = mode
-    detail["sort_mode_gbps"] = {mode: result["value"]}
-    detail["sort_mode_latency_s"] = {mode: detail["tpu_step_latency_s"]}
+    detail["sort_mode"] = SORT_MODE
+    detail["sort_mode_gbps"] = {SORT_MODE: result["value"]}
+    detail["sort_mode_latency_s"] = {
+        SORT_MODE: detail["tpu_step_latency_s"]}
     print(json.dumps(result))
     return 0
 
@@ -680,7 +673,7 @@ def _bench_topo_exchange(detail: dict, mesh) -> None:
         from sparkrdma_tpu_torch.shuffle.topo_bench import run_topo_microbench
 
         # the same env knobs _round_provenance records steer the run
-        # (BENCH_IMPL / BENCH_SORT_MODE precedent): slice count from
+        # (BENCH_IMPL precedent): slice count from
         # BENCH_SLICE_TOPOLOGY ("N" form), cost ratio from the
         # coefficient pair — so recorded topology matches what ran
         kw = {}
@@ -1064,12 +1057,12 @@ def main() -> None:
                           "unit": "", "detail": detail}))
         return
 
-    mode = _sort_mode()
     impl = os.environ.get("BENCH_IMPL", "auto")
     cfg = TeraSortConfig(rows_per_device=rows_per_device, payload_words=24,
-                         out_factor=out_factor, sort_mode=mode)
+                         out_factor=out_factor)
     rows = None
-    _progress(f"inner start: shards={n} platform={device.type} mode={mode}")
+    _progress(f"inner start: shards={n} platform={device.type} "
+              f"mode={SORT_MODE}")
     if on_device:
         # the uniform-random dataset is generated ON THE CARD, in the
         # port's row layout (u32 bits in int32): 1 GiB through the host
@@ -1093,7 +1086,7 @@ def main() -> None:
     for i in range(2):
         _, counts, _of = step(rows_d)
         counts.cpu()
-        _progress(f"{mode}: warmup {i} done")
+        _progress(f"{SORT_MODE}: warmup {i} done")
     # per-step latency: host-synced each step
     times = []
     for _ in range(reps):
@@ -1115,7 +1108,7 @@ def main() -> None:
     prev.cpu()
     pipelined = (time.perf_counter() - t0) / reps
     launches = ring_exchange.LAUNCHES - launches_before
-    _progress(f"{mode}: timed latency={min(times):.4f}s "
+    _progress(f"{SORT_MODE}: timed latency={min(times):.4f}s "
               f"pipelined={pipelined:.4f}s")
     if overflowed.any().item():
         raise AssertionError("receive-buffer overflow in bench")
@@ -1124,7 +1117,7 @@ def main() -> None:
 
     # spot-verify on a subsample to keep bench time bounded
     small_cfg = TeraSortConfig(rows_per_device=4096, payload_words=24,
-                               out_factor=out_factor, sort_mode=mode)
+                               out_factor=out_factor)
     small_rows = generate_rows(small_cfg, n, seed=1)
     small_step = make_terasort_step(mesh, small_cfg, impl=impl)
     s_out, s_counts, _ = small_step(rows_from_numpy(small_rows, mesh))
@@ -1134,7 +1127,7 @@ def main() -> None:
 
     light = os.environ.get("BENCH_LIGHT") == "1"
     if light:
-        # a sort-mode run under the watchdog: the baseline belongs to the
+        # the TeraSort run under the watchdog: the baseline belongs to the
         # separate secondary phase (merged back in by the watchdog)
         cpu_dt = None
     else:
@@ -1156,8 +1149,8 @@ def main() -> None:
         "device_kind": (torch.cuda.get_device_name(device) if on_device
                         else device.type),
         "power_limit_w": _power_limit_w(device),
-        "sort_mode": mode,
-        "sort_mode_step_s": {mode: round(pipelined, 6)},
+        "sort_mode": SORT_MODE,
+        "sort_mode_step_s": {SORT_MODE: round(pipelined, 6)},
         "tpu_step_latency_s": round(min(times), 6),
         # repetitions + spread so a few-percent swing between rounds is
         # attributable (host noise vs real regression)

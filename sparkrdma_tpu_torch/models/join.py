@@ -26,7 +26,7 @@ import torch
 from sparkrdma_tpu_torch.ops.partition import hash_partition
 from sparkrdma_tpu_torch.parallel.exchange import (
     resolve_transport,
-    shuffle_shard,
+    shuffle_into,
 )
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 from sparkrdma_tpu_torch.utils import trace as trace_mod
@@ -59,13 +59,8 @@ def make_join_step(mesh: VirtualMesh, cfg: JoinConfig, impl: str = "auto"):
     def exchange_side(rows: torch.Tensor):
         keys = to_u64(rows[..., 0])
         dest = torch.where(keys != PAD, hash_partition(keys, n), -1)
-        output = torch.zeros((n, rows.shape[1] * cfg.out_factor, 2),
-                             dtype=rows.dtype, device=rows.device)
-        received, recv_counts, _, overflowed = shuffle_shard(
-            rows, dest, output=output, impl=impl)
-        total = recv_counts.sum(dim=1, keepdim=True)
-        rvalid = torch.arange(received.shape[1],
-                              device=rows.device) < total
+        received, rvalid, overflowed = shuffle_into(
+            rows, dest, rows.shape[1] * cfg.out_factor, impl)
         rkeys = torch.where(rvalid, to_u64(received[..., 0]), PAD)
         sorted_keys, order = torch.sort(rkeys, dim=1, stable=True)
         measures = received[..., 1].to(torch.int64).gather(1, order)

@@ -7,9 +7,9 @@ source vertex's shard. One iteration is one step over every shard:
 
 1. contribution per local edge = ``rank[src] / out_degree[src]`` (a
    local gather: src is local by construction; span ``pagerank.contrib``);
-2. ``shuffle_shard`` moves ``(dst, contribution bits)`` int32 rows to
-   dst's owner (the GraphX shuffle; on ``cuda`` through the ring
-   all-to-all kernel; span ``pagerank.exchange``);
+2. ``exchange.shuffle_into`` moves ``(dst, contribution bits)`` int32
+   rows to dst's owner (the GraphX shuffle; on ``cuda`` through the
+   ragged all-to-all kernel; span ``pagerank.exchange``);
 3. one ``index_add_`` sums the received contributions into local ranks,
    then ``rank = (1 - d)/V + d * sums`` (span ``pagerank.sum``). On the
    card ``index_add_`` adds with atomics, so the sum order is free and
@@ -28,7 +28,7 @@ import torch
 
 from sparkrdma_tpu_torch.parallel.exchange import (
     resolve_transport,
-    shuffle_shard,
+    shuffle_into,
     spread_index,
 )
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
@@ -78,14 +78,10 @@ def make_pagerank_step(mesh: VirtualMesh, cfg: PageRankConfig,
             rows = torch.stack([dst, contrib.view(torch.int32)], dim=-1)
             dest = torch.where(valid, torch.div(dst, v_local,
                                                 rounding_mode="floor"), -1)
-        output = torch.zeros((n, edges.shape[1] * cfg.out_factor, 2),
-                             dtype=torch.int32, device=dev)
         with trace_mod.span("pagerank.exchange"):
-            received, recv_counts, _, overflowed = shuffle_shard(
-                rows, dest, output=output, impl=impl)
+            received, rvalid, overflowed = shuffle_into(
+                rows, dest, edges.shape[1] * cfg.out_factor, impl)
         with trace_mod.span("pagerank.sum"):
-            total = recv_counts.sum(dim=1, keepdim=True)
-            rvalid = torch.arange(received.shape[1], device=dev) < total
             # shard d's local vertex i sits at d*V/D + i of the flat
             # [D*V/D] sums, which is its global id; a pad row adds 0.0
             rdst = spread_index(rvalid, received[..., 0] - first, v_local)

@@ -32,11 +32,6 @@ class TeraSortConfig:
     rows_per_device: int
     payload_words: int = 24  # 4B key word + 24*4B payload = the classic 100B row
     out_factor: int = 2      # receive headroom (uniform keys -> mild skew)
-    # How payload follows its key through a local sort. The JAX package
-    # has three strategies for XLA ("gather", "multisort", "colsort");
-    # they give the same stable order, and in PyTorch all three are a
-    # stable key sort plus one row gather (see device_plane._local_sort).
-    sort_mode: str = "gather"
 
     @property
     def row_bytes(self) -> int:
@@ -55,10 +50,8 @@ def make_terasort_step(mesh: VirtualMesh, cfg: TeraSortConfig,
     (key=0xFFFFFFFF) at the end. ``overflowed[d]`` flags that shard d's
     receive buffer was too small for the skew.
     """
-    return make_fused_step(mesh, 1 + cfg.payload_words,
-                           out_factor=cfg.out_factor, impl=impl,
-                           sort_mode=cfg.sort_mode, key_words=1,
-                           partition="range")
+    return make_fused_step(mesh, out_factor=cfg.out_factor, impl=impl,
+                           key_words=1, partition="range")
 
 
 def generate_rows(cfg: TeraSortConfig, num_devices: int,

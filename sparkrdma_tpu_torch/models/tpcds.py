@@ -5,12 +5,13 @@ Port of the on-mesh half of ``sparkrdma_tpu/models/tpcds.py``
 
     fact  join(key1) dim1  join(key2) dim2  -> GROUP BY g -> (count, sum)
 
-runs as five chained ``shuffle_shard`` exchanges in one step over every
-shard (on ``cuda`` each through the ring all-to-all kernel): fact and dim1
-by hash(key1), the join-1 survivors and dim2 by hash(key2), the joined
-rows by group owner (``g % D``). Fact keys are Zipf-skewed; dimension
-keys are unique with partial coverage, so both joins are selective inner
-joins done as sorted lookups (validity masks carry selectivity).
+runs as five chained ``exchange.shuffle_into`` shuffles in one step over
+every shard (on ``cuda`` each through the ragged all-to-all kernel, the
+``native`` transport): fact and dim1 by hash(key1), the join-1 survivors
+and dim2 by hash(key2), the joined rows by group owner (``g % D``). Fact
+keys are Zipf-skewed; dimension keys are unique with partial coverage, so
+both joins are selective inner joins done as sorted lookups
+(``ops/sort.py::lookup_unique``; validity masks carry selectivity).
 
 Arithmetic is the JAX package's u32 arithmetic: int64 values masked to
 32 bits (``utils.u32``). Per-group sums are int32 there and wrap; the
@@ -32,9 +33,10 @@ import numpy as np
 import torch
 
 from sparkrdma_tpu_torch.ops.partition import hash_partition
+from sparkrdma_tpu_torch.ops.sort import lookup_unique
 from sparkrdma_tpu_torch.parallel.exchange import (
     resolve_transport,
-    shuffle_shard,
+    shuffle_into,
     spread_index,
 )
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
@@ -117,36 +119,16 @@ def make_tpcds_step(mesh: VirtualMesh, cfg: TpcdsConfig, impl: str = "auto"):
         keys = to_u64(rows[..., key_col])
         return torch.where(keys != SENTINEL, hash_partition(keys, n), -1)
 
-    def exchange(rows, dest, capacity):
-        output = torch.zeros((n, capacity, rows.shape[2]), dtype=rows.dtype,
-                             device=rows.device)
-        received, recv_counts, _, overflowed = shuffle_shard(
-            rows, dest, output=output, impl=impl)
-        valid = (torch.arange(capacity, device=rows.device)
-                 < recv_counts.sum(dim=1, keepdim=True))
-        return received, valid, overflowed
-
-    def dim_lookup(dim_rows, dim_valid, query_keys):
-        """Unique-key join: sorted dim + one searchsorted per probe;
-        ``query_keys`` zero-extended int64. Returns (attr int64, found)."""
-        dkeys = torch.where(dim_valid, to_u64(dim_rows[..., 0]), SENTINEL)
-        dkeys_s, order = torch.sort(dkeys, dim=1, stable=True)
-        dattr_s = to_u64(dim_rows[..., 1]).gather(1, order)
-        idx = torch.clamp(torch.searchsorted(dkeys_s, query_keys), 0,
-                          dkeys_s.shape[1] - 1)
-        found = ((dkeys_s.gather(1, idx) == query_keys)
-                 & (query_keys != SENTINEL))
-        return dattr_s.gather(1, idx), found
-
     def step(fact: torch.Tensor, dim1: torch.Tensor, dim2: torch.Tensor):
         cap = fact.shape[1] * cfg.out_factor
         with trace_mod.span("tpcds.join1"):
             # shuffles 1+2: dim1 and fact to hash(key1) owners
-            d1, d1_valid, of1 = exchange(dim1, route(dim1, 0),
-                                         dim1.shape[1] * cfg.out_factor)
-            f1, f1_valid, of2 = exchange(fact, route(fact, 0), cap)
+            d1, d1_valid, of1 = shuffle_into(
+                dim1, route(dim1, 0), dim1.shape[1] * cfg.out_factor, impl)
+            f1, f1_valid, of2 = shuffle_into(fact, route(fact, 0), cap, impl)
             key1 = to_u64(f1[..., 0])
-            attr1, found1 = dim_lookup(d1, d1_valid, key1)
+            attr1, found1 = lookup_unique(d1[..., 0], d1_valid, d1[..., 1],
+                                          key1)
             live1 = f1_valid & found1
             value1 = ((to_u64(f1[..., 2]) * attr1) & MASK) % _MOD
             # join-1 survivors: (key2, key1, value1), PAD-keyed when dead
@@ -155,11 +137,12 @@ def make_tpcds_step(mesh: VirtualMesh, cfg: TpcdsConfig, impl: str = "auto"):
             mid = to_bits(mid)
         with trace_mod.span("tpcds.join2"):
             # shuffles 3+4: dim2 and the survivors to hash(key2) owners
-            d2, d2_valid, of3 = exchange(dim2, route(dim2, 0),
-                                         dim2.shape[1] * cfg.out_factor)
-            m2, m2_valid, of4 = exchange(mid, route(mid, 0), cap)
+            d2, d2_valid, of3 = shuffle_into(
+                dim2, route(dim2, 0), dim2.shape[1] * cfg.out_factor, impl)
+            m2, m2_valid, of4 = shuffle_into(mid, route(mid, 0), cap, impl)
             key2 = to_u64(m2[..., 0])
-            attr2, found2 = dim_lookup(d2, d2_valid, key2)
+            attr2, found2 = lookup_unique(d2[..., 0], d2_valid, d2[..., 1],
+                                          key2)
             live2 = m2_valid & found2
             value = ((to_u64(m2[..., 2]) + attr2) & MASK) % _MOD
             group = _mix_group(to_u64(m2[..., 1]), key2, groups)
@@ -168,7 +151,7 @@ def make_tpcds_step(mesh: VirtualMesh, cfg: TpcdsConfig, impl: str = "auto"):
             rows3 = to_bits(torch.stack(
                 [torch.where(live2, group, SENTINEL), value], dim=-1))
             dest3 = torch.where(live2, group % n, -1)
-            recv3, v3, of5 = exchange(rows3, dest3, cap)
+            recv3, v3, of5 = shuffle_into(rows3, dest3, cap, impl)
             g3 = to_u64(recv3[..., 0])
             live3 = v3 & (g3 != SENTINEL)
             # one flat [D*G] sum: shard d's group g at d*G + g. The JAX

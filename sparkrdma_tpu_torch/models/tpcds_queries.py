@@ -56,12 +56,13 @@ import numpy as np
 import torch
 
 from sparkrdma_tpu_torch.ops.partition import hash_partition
+from sparkrdma_tpu_torch.ops.sort import lookup_unique, sort_rows
 from sparkrdma_tpu_torch.parallel.device_plane import stage_to_device
 from sparkrdma_tpu_torch.parallel.exchange import (
     resolve_transport,
-    shuffle_shard,
+    shuffle_into,
 )
-from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh, take_rows
+from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 from sparkrdma_tpu_torch.utils import trace as trace_mod
 from sparkrdma_tpu_torch.utils.u32 import MASK, SENTINEL, to_bits, to_u64
 
@@ -88,33 +89,6 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _exchange(rows, dest, capacity: int, impl: str):
-    """One shuffle of ``rows [D, N, W]`` to ``dest [D, N]`` with a fixed
-    receive capacity; returns (received, valid [D, capacity],
-    overflowed [D])."""
-    n = rows.shape[0]
-    with trace_mod.span("exchange.receive_fill"):
-        output = torch.zeros((n, capacity, rows.shape[2]), dtype=rows.dtype,
-                             device=rows.device)
-    received, recv_counts, _, overflowed = shuffle_shard(
-        rows, dest, output=output, impl=impl)
-    valid = (torch.arange(capacity, device=rows.device)
-             < recv_counts.sum(dim=1, keepdim=True))
-    return received, valid, overflowed
-
-
-def _lookup(dim_keys, dim_valid, dim_attr, probes):
-    """Sorted unique-key lookup per shard: ``dim_keys`` / ``dim_attr``
-    u32 words ``[D, M]``, ``probes`` zero-extended int64 ``[D, N]``.
-    Returns ``(attr int64, found)`` per probe."""
-    dk = torch.where(dim_valid, to_u64(dim_keys), SENTINEL)
-    ks, order = torch.sort(dk, dim=1, stable=True)
-    at = to_u64(dim_attr).gather(1, order)
-    idx = torch.clamp(torch.searchsorted(ks, probes), 0, ks.shape[1] - 1)
-    found = (ks.gather(1, idx) == probes) & (probes != SENTINEL)
-    return at.gather(1, idx), found
-
-
 def _route(keys, valid, n: int):
     return torch.where(valid, hash_partition(keys, n), -1)
 
@@ -129,22 +103,6 @@ def _dim_cap(rows_per_shard: int, n: int) -> int:
     fixed slot ``cap // n = rows`` is all a source has, so no pair can
     overflow either."""
     return rows_per_shard * n
-
-
-def _sort_by(keys, rows):
-    """Rows ``[D, N, W]`` stably sorted per shard by int64 key words
-    ``keys`` (a tuple of ``[D, N]``, most significant first: LSD passes,
-    least significant first); returns (sorted most significant key,
-    sorted rows)."""
-    perm = None
-    for k in reversed(keys):
-        _, idx = torch.sort(k if perm is None else k.gather(1, perm), dim=1,
-                            stable=True)
-        perm = idx if perm is None else perm.gather(1, idx)
-    # the row gather first: a span around this sort then ends on a kernel
-    # of its own, so its device range covers the ``mesh.take_rows`` one
-    sorted_rows = take_rows(rows, perm)
-    return keys[0].gather(1, perm), sorted_rows
 
 
 class _Segments:
@@ -306,12 +264,12 @@ def make_q95_step(mesh: VirtualMesh, cfg: Q95Config, impl: str = "auto"):
     def dim_round(rows, valid, key_col, dim, flag_bit, pred):
         """Shuffle-join one dimension; OR ``pred(attr) & found`` into the
         flags column (col 7); returns (rows, valid, overflowed)."""
-        d_recv, d_valid, of_d = _exchange(
+        d_recv, d_valid, of_d = shuffle_into(
             dim, _route(dim[..., 0], _all(dim), n),
             _dim_cap(dim.shape[1], n), impl)
-        f_recv, f_valid, of_f = _exchange(
+        f_recv, f_valid, of_f = shuffle_into(
             rows, _route(rows[..., key_col], valid, n), cap, impl)
-        attr, found = _lookup(
+        attr, found = lookup_unique(
             d_recv[..., 0], d_valid, d_recv[..., 1],
             torch.where(f_valid, to_u64(f_recv[..., key_col]), SENTINEL))
         ok = found & pred(attr)
@@ -333,9 +291,9 @@ def make_q95_step(mesh: VirtualMesh, cfg: Q95Config, impl: str = "auto"):
                 rows, valid, 4, site, 4, lambda c: c == cfg.target_company)
         with trace_mod.span("q95.by_order"):
             # round 4: co-locate by order_number (fact AND returns)
-            rows, valid, of4 = _exchange(
+            rows, valid, of4 = shuffle_into(
                 rows, _route(rows[..., 0], valid, n), cap, impl)
-            wr_recv, wr_valid, of5 = _exchange(
+            wr_recv, wr_valid, of5 = shuffle_into(
                 wr, _route(wr[..., 0], _all(wr), n),
                 _dim_cap(wr.shape[1], n), impl)
         with trace_mod.span("q95.aggregate"):
@@ -346,7 +304,7 @@ def make_q95_step(mesh: VirtualMesh, cfg: Q95Config, impl: str = "auto"):
             keys = (torch.where(valid, to_u64(rows[..., 0]), SENTINEL),
                     to_u64(rows[..., 1]))
             with trace_mod.span("q95.aggregate.sort"):
-                o_s, r_s = _sort_by(keys, rows)
+                o_s, r_s = sort_rows(rows, keys)
             del keys  # freed as the sort returns, not held to the step's end
             seg = _Segments(o_s)
             live = o_s != SENTINEL
@@ -354,8 +312,8 @@ def make_q95_step(mesh: VirtualMesh, cfg: Q95Config, impl: str = "auto"):
                 [torch.zeros_like(seg.first[:, :1]),
                  r_s[:, 1:, 1] != r_s[:, :-1, 1]], dim=1) & ~seg.first
             multi = seg.sum(wh_change) > 0  # >1 distinct warehouse
-            _, has_ret = _lookup(wr_recv[..., 0], wr_valid, wr_recv[..., 0],
-                                 o_s)
+            _, has_ret = lookup_unique(wr_recv[..., 0], wr_valid,
+                                       wr_recv[..., 0], o_s)
             qual = live & (r_s[..., 7] == 7) & has_ret & multi
             distinct = (seg.first & (seg.sum(qual) > 0)).sum(dim=1)
             cost = torch.where(qual, to_u64(r_s[..., 5]), 0).sum(dim=1)
@@ -526,12 +484,12 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
         with trace_mod.span("q64.catalog_join"):
             # round 1: catalog pair join
             cs_rows, cs_pk = with_pairkey(cs)
-            cs_r, cs_v, o1 = _exchange(cs_rows, _route(cs_pk, _all(cs), n),
-                                       cap_cs, impl)
+            cs_r, cs_v, o1 = shuffle_into(
+                cs_rows, _route(cs_pk, _all(cs), n), cap_cs, impl)
             cr_rows, cr_pk = with_pairkey(cr)
-            cr_r, cr_v, o2 = _exchange(cr_rows, _route(cr_pk, _all(cr), n),
-                                       cap_cs, impl)
-            refund, found = _lookup(
+            cr_r, cr_v, o2 = shuffle_into(
+                cr_rows, _route(cr_pk, _all(cr), n), cap_cs, impl)
+            refund, found = lookup_unique(
                 cr_r[..., 3], cr_v, cr_r[..., 2],
                 torch.where(cs_v, to_u64(cs_r[..., 3]), SENTINEL))
             refund = torch.where(found, refund, 0)
@@ -539,10 +497,10 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
             # round 2: group catalog by item -> cs_ui
             joined = torch.stack([cs_r[..., 0], cs_r[..., 2],
                                   to_bits(refund)], dim=2)
-            j_r, j_v, o3 = _exchange(joined, _route(cs_r[..., 0], cs_v, n),
-                                     cap_cs, impl)
-            ik_s, j_s = _sort_by(
-                (torch.where(j_v, to_u64(j_r[..., 0]), SENTINEL),), j_r)
+            j_r, j_v, o3 = shuffle_into(
+                joined, _route(cs_r[..., 0], cs_v, n), cap_cs, impl)
+            ik_s, j_s = sort_rows(
+                j_r, (torch.where(j_v, to_u64(j_r[..., 0]), SENTINEL),))
             seg = _Segments(ik_s)
             live = ik_s != SENTINEL
             sale_sum = _wrap32(seg.sum(torch.where(live, to_u64(j_s[..., 1]),
@@ -554,23 +512,24 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
         with trace_mod.span("q64.store_join"):
             # round 3: store pair join (inner)
             ss_rows, ss_pk = with_pairkey(ss)
-            ss_r, ss_v, o4 = _exchange(ss_rows, _route(ss_pk, _all(ss), n),
-                                       cap_ss, impl)
+            ss_r, ss_v, o4 = shuffle_into(
+                ss_rows, _route(ss_pk, _all(ss), n), cap_ss, impl)
             sr_rows, sr_pk = with_pairkey(sr)
-            sr_r, sr_v, o5 = _exchange(sr_rows, _route(sr_pk, _all(sr), n),
-                                       cap_ss, impl)
-            _, ret_found = _lookup(
+            sr_r, sr_v, o5 = shuffle_into(
+                sr_rows, _route(sr_pk, _all(sr), n), cap_ss, impl)
+            _, ret_found = lookup_unique(
                 sr_r[..., 2], sr_v, sr_r[..., 2],
                 torch.where(ss_v, to_u64(ss_r[..., 4]), SENTINEL))
             surv_v = ss_v & ret_found
         with trace_mod.span("q64.date_join"):
             # round 4: date join on survivors
-            d_r, d_v, o6 = _exchange(date, _route(date[..., 0], _all(date), n),
-                                     _dim_cap(date.shape[1], n), impl)
-            s2, s2_v, o7 = _exchange(ss_r[..., :4].contiguous(),
-                                     _route(ss_r[..., 2], surv_v, n),
-                                     cap_ss, impl)
-            year, y_found = _lookup(
+            d_r, d_v, o6 = shuffle_into(
+                date, _route(date[..., 0], _all(date), n),
+                _dim_cap(date.shape[1], n), impl)
+            s2, s2_v, o7 = shuffle_into(ss_r[..., :4].contiguous(),
+                                        _route(ss_r[..., 2], surv_v, n),
+                                        cap_ss, impl)
+            year, y_found = lookup_unique(
                 d_r[..., 0], d_v, d_r[..., 1],
                 torch.where(s2_v, to_u64(s2[..., 2]), SENTINEL))
             s2_v = s2_v & y_found & (year <= 1)
@@ -578,10 +537,10 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
             # round 5: group by item; semi-join cs_ui; CTE self-join
             rows5 = torch.stack([s2[..., 0], to_bits(year), s2[..., 3]],
                                 dim=2)
-            r5, v5, o8 = _exchange(rows5, _route(s2[..., 0], s2_v, n),
-                                   cap_ss, impl)
-            ik5_s, r5_s = _sort_by(
-                (torch.where(v5, to_u64(r5[..., 0]), SENTINEL),), r5)
+            r5, v5, o8 = shuffle_into(
+                rows5, _route(s2[..., 0], s2_v, n), cap_ss, impl)
+            ik5_s, r5_s = sort_rows(
+                r5, (torch.where(v5, to_u64(r5[..., 0]), SENTINEL),))
             seg5 = _Segments(ik5_s)
             live5 = ik5_s != SENTINEL
             cnt0 = seg5.sum(live5 & (r5_s[..., 1] == 0))
@@ -589,7 +548,8 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
             sum01 = seg5.sum(torch.where(live5, to_u64(r5_s[..., 2]), 0))
             # items were routed by the SAME hash in rounds 2 and 5, so the
             # semi-join against this shard's cs_ui entries is local
-            _, is_ui = _lookup(ui_item, ui_item != SENTINEL, ui_item, ik5_s)
+            _, is_ui = lookup_unique(ui_item, ui_item != SENTINEL, ui_item,
+                                     ik5_s)
             qual = (seg5.first & is_ui & live5 & (cnt0 > 0) & (cnt1 > 0)
                     & (cnt1 <= cnt0))
             items = qual.sum(dim=1)

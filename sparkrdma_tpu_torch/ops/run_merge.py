@@ -5,7 +5,7 @@ one a source, each key-sorted: the sources key-sort their rows before the
 range split, which is monotone in the key, and every transport packs the
 received rows grouped by source. A stable S-way merge of those runs, ties
 to the earlier run, is the stable key sort of the whole buffer that
-``parallel/device_plane.py``'s ``sort_received`` makes, byte for byte,
+``ops/sort.py``'s ``sort_received`` makes, byte for byte,
 pads included. The JAX package sorts there with XLA; here it is the CUDA
 kernel ``run_merge_launch`` in ``csrc/run_merge.cu`` (its header says what
 bounds it and how the design follows).
@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from sparkrdma_tpu_torch.ops.row_gather import vector_bytes
+from sparkrdma_tpu_torch.ops.sort import sort_received
 
 LAUNCHES = 0
 _KERNEL = "run_merge"
@@ -105,10 +106,6 @@ def merge_runs(received: torch.Tensor,
     _check(received, recv_counts)
     if not received.is_cuda:
         if received.device.type == "cpu":
-            # the device plane imports this module
-            from sparkrdma_tpu_torch.parallel.device_plane import (
-                sort_received,
-            )
             return sort_received(received, recv_counts)
         raise ValueError(f"merge_runs runs on cuda or cpu, not "
                          f"{received.device}")

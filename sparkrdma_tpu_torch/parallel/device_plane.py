@@ -13,13 +13,15 @@ int32 rows, keys compared as zero-extended int64 (``utils.u32``).
   the two-level link cost may choose the hierarchical plan.
 * ``make_fused_step``: partition + exchange + local sort in one step.
   Each layer runs under a span (``utils.trace.span``): ``fused.local_sort``
-  (with ``exchange.group`` inside on the ``dest`` partition),
-  ``fused.counts``, ``exchange.receive_fill`` (the receive buffer's
-  zero fill), the exchange's own (``exchange.transport``, and
+  (``ops/sort.py::sort_rows`` on the ``range`` partition,
+  ``exchange.group`` inside on the ``dest`` one), ``fused.counts``,
+  ``exchange.receive_fill`` (``exchange.receive_buffer``'s zero fill),
+  the exchange's own (``exchange.transport``, and
   ``exchange.slot_fill``/``exchange.pack`` on the slot transports) and
   ``fused.receive_sort`` (on the ``range`` partition the merge of the
   received runs, ``ops/run_merge.py``, whose bytes ``fused.merge_bytes``
-  counts); every row gather inside is a ``mesh.take_rows``.
+  counts; on ``dest`` ``ops/sort.py::sort_received``); every row gather
+  inside is a ``mesh.take_rows``.
   So a ``torch.profiler`` trace splits the step's device time by layer,
   and with no profiler running the spans cost a flag check.
 * ``run_fused_exchange(_rounds)``: the host driver, bounded rounds sized
@@ -46,6 +48,7 @@ bounds a round.
 
 from __future__ import annotations
 
+import functools
 import warnings
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -55,18 +58,25 @@ import torch
 
 from sparkrdma_tpu_torch.ops import run_merge
 from sparkrdma_tpu_torch.ops.partition import uniform_splitters
+from sparkrdma_tpu_torch.ops.sort import (
+    row_keys,
+    sort_live_rows,
+    sort_received,
+    sort_rows,
+)
 from sparkrdma_tpu_torch.parallel import topology as topology_mod
 from sparkrdma_tpu_torch.parallel.exchange import (
     bucket_quota,
     exchange_over,
     group_by_destination,
+    receive_buffer,
     record_exchange,
     resolve_transport,
 )
-from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh, take_rows
+from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 from sparkrdma_tpu_torch.shuffle.external import merge_runs
 from sparkrdma_tpu_torch.utils import trace as trace_mod
-from sparkrdma_tpu_torch.utils.u32 import SENTINEL, to_bits, to_u64
+from sparkrdma_tpu_torch.utils.u32 import to_bits
 
 DEVICE_PLANE = "device"
 HOST_PLANE = "host"
@@ -299,80 +309,8 @@ def select_dataplane(mesh: Optional[VirtualMesh], profile: StageProfile, *,
 # the fused step: partition + exchange + local sort
 # ---------------------------------------------------------------------------
 
-SORT_MODES = ("gather", "multisort", "colsort")
-
-
-def _stable_order(keys: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-    """Per-shard permutation that sorts ``keys`` (int64 ``[D, N]``, most
-    significant first) with ties in original position order: LSD passes,
-    one stable sort per key word, least significant first."""
-    order = None
-    for k in reversed(keys):
-        kk = k if order is None else k.gather(1, order)
-        _, idx = torch.sort(kk, dim=1, stable=True)
-        order = idx if order is None else order.gather(1, idx)
-    return order
-
-
-def _local_sort(rows: torch.Tensor, keys: Tuple[torch.Tensor, ...],
-                sort_mode: str, write_back_keys: bool):
-    """One per-shard sort of full rows ``[D, N, W]`` by (pre-masked)
-    keys, a tuple of int64 ``[D, N]`` key words, most significant first.
-    Returns ``(sorted_rows, sorted_keys)`` with ``sorted_keys`` the most
-    significant word.
-
-    The JAX package's three ``sort_mode``s are three ways to make XLA
-    carry the payload through a sort: ``gather`` sorts (key, iota) and
-    gathers rows once, ``multisort`` and ``colsort`` feed the payload
-    columns through the sort network. All three give the same stable
-    order (ties by arrival). In PyTorch a stable sort of the keys plus one
-    row gather IS that order, so the three modes share this one
-    implementation; the names stay for parity with the JAX config.
-
-    ``write_back_keys`` overwrites column 0 with the sorted key
-    (single-word layouts only), so padding rows show the sentinel."""
-    if sort_mode not in SORT_MODES:
-        raise ValueError(f"unknown sort_mode {sort_mode!r} "
-                         "(expected 'gather', 'multisort' or 'colsort')")
-    order = _stable_order(keys)
-    # the row gather before the key gather: a span around this sort then
-    # ends on a kernel of its own, so its device range covers the
-    # ``mesh.take_rows`` one
-    sorted_rows = take_rows(rows, order)
-    sorted_keys = keys[0].gather(1, order)
-    if write_back_keys:
-        sorted_rows[:, :, 0] = to_bits(sorted_keys)
-    return sorted_rows, sorted_keys
-
-
-def _row_keys(rows: torch.Tensor, key_words: int):
-    """The per-row sort key words (int64 ``[D, N]``), most significant
-    first: column 0 for single-word u32 keys, ``(hi=col 1, lo=col 0)``
-    for the little-endian packed u64 layout."""
-    if key_words == 1:
-        return (to_u64(rows[:, :, 0]),)
-    return (to_u64(rows[:, :, 1]), to_u64(rows[:, :, 0]))
-
-
-def sort_received(received: torch.Tensor, recv_counts: torch.Tensor,
-                  key_words: int = 1, sort_mode: str = "gather"
-                  ) -> torch.Tensor:
-    """Key-sort received rows ``[D, R, W]`` with pads (index >= the
-    receiver's ``recv_counts`` total) masked to the sentinel on every key
-    word so they sort last; stable order within equal keys is arrival
-    (source-major) order. Single-word keys are written back into column
-    0, so pads show the sentinel."""
-    total = recv_counts.sum(dim=1)
-    idx = torch.arange(received.shape[1], device=received.device)
-    pad = idx[None, :] >= total[:, None]
-    keys = tuple(k.masked_fill(pad, SENTINEL)
-                 for k in _row_keys(received, key_words))
-    return _local_sort(received, keys, sort_mode, key_words == 1)[0]
-
-
-def make_fused_step(mesh: VirtualMesh, row_words: int, *,
-                    out_factor: int = 2, impl: str = "auto",
-                    sort_mode: str = "gather", key_words: int = 1,
+def make_fused_step(mesh: VirtualMesh, *, out_factor: int = 2,
+                    impl: str = "auto", key_words: int = 1,
                     partition: str = "range") -> Callable:
     """Build the fused partition+exchange+local-sort step over ``mesh``
     (a ``VirtualMesh``, or a ``GlobalMesh``: then ``D`` below is the
@@ -387,7 +325,7 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
       key-sorted run a source, which ``ops/run_merge.py`` merges (the
       hand-written merge kernel on ``cuda``, for at most
       ``run_merge.MAX_RUNS`` = 32 sources) where the ``dest`` step sorts.
-      ``step(rows)`` with ``rows: int32[D, cap, row_words]``, key =
+      ``step(rows)`` with ``rows: int32[D, cap, W]``, key =
       column 0.
     * ``"dest"`` — caller-computed destinations: ``step(rows, dest,
       slot_rows=None)`` with ``dest: int[D, cap]``; ``dest < 0`` marks
@@ -397,17 +335,13 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
       shard (``key_words`` 1 = u32 column 0, 2 = u64 packed columns
       [0, 1]).
 
-    Returns ``(sorted_rows [D, cap * out_factor, row_words],
+    Returns ``(sorted_rows [D, cap * out_factor, W],
     recv_counts int32[D, D], overflowed bool[D])`` with each shard's rows
     key-sorted, padding at the end (strip with ``recv_counts[d].sum()``).
     ``overflowed[d]`` flags a receive past the ``out_factor`` headroom or
     a slot-pair overflow: results there are truncated and must not be
     trusted.
     """
-    if sort_mode not in SORT_MODES:
-        # a typo must not silently measure (and mislabel) the gather path
-        raise ValueError(f"unknown sort_mode {sort_mode!r} "
-                         "(expected 'gather', 'multisort' or 'colsort')")
     if partition not in ("range", "dest"):
         raise ValueError(f"unknown partition {partition!r} "
                          "(expected 'range' or 'dest')")
@@ -417,7 +351,6 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
     n = mesh.num_shards
     local = mesh.local_shards   # this process's shards (all, on one card)
     impl = resolve_transport(mesh, impl)
-    write_back = key_words == 1
     splitters = (uniform_splitters(n, mesh.device) if partition == "range"
                  else None)
 
@@ -436,17 +369,12 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
                             received.shape[0] * received.shape[1] * row_bytes)
         return run_merge.merge_runs(received, recv_counts)
 
-    def sort_received_rows(received, recv_counts):
-        return sort_received(received, recv_counts, key_words, sort_mode)
-
     order_received = (merge_received if partition == "range"
-                      else sort_received_rows)
+                      else functools.partial(sort_received,
+                                             key_words=key_words))
 
     def exchange_and_sort(grouped, counts, slot_rows=None):
-        with trace_mod.span("exchange.receive_fill"):
-            output = torch.zeros(
-                (local, grouped.shape[1] * out_factor, row_words),
-                dtype=grouped.dtype, device=grouped.device)
+        output = receive_buffer(grouped, grouped.shape[1] * out_factor)
         received, recv_counts, _, overflowed = exchange_over(
             mesh, grouped, counts, output=output, impl=impl,
             slot_rows=slot_rows)
@@ -456,9 +384,7 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
 
     def no_exchange(rows, valid):
         # single shard: no exchange, one sort is the whole job
-        keys = tuple(k.masked_fill(~valid, SENTINEL)
-                     for k in _row_keys(rows, key_words))
-        sorted_rows, _ = _local_sort(rows, keys, sort_mode, write_back)
+        sorted_rows = sort_live_rows(rows, ~valid, key_words)
         counts = valid.sum(dim=1, dtype=torch.int32).reshape(1, 1)
         return sorted_rows, counts, torch.zeros(1, dtype=torch.bool,
                                                 device=rows.device)
@@ -473,8 +399,8 @@ def make_fused_step(mesh: VirtualMesh, row_words: int, *,
             # Local sort by KEY once: range partition is monotonic in
             # key, so key-sorted rows are destination-grouped for free.
             with trace_mod.span("fused.local_sort"):
-                grouped, sorted_keys = _local_sort(
-                    rows, _row_keys(rows, 1), sort_mode, write_back)
+                sorted_keys, grouped = sort_rows(rows, row_keys(rows, 1))
+                grouped[:, :, 0] = to_bits(sorted_keys)
             # per-destination counts: D-1 binary searches on sorted keys
             with trace_mod.span("fused.counts"):
                 bounds = torch.searchsorted(
@@ -633,8 +559,8 @@ def _merged(runs: List[list], key_words: int, row_words: int
 def run_fused_exchange(mesh: VirtualMesh, rows: np.ndarray,
                        dest: np.ndarray, *, key_words: int = 2,
                        rows_per_round: int = 0, out_factor: int = 2,
-                       impl: str = "auto", sort_mode: str = "gather",
-                       tracer=None, pipeline_rounds: bool = True,
+                       impl: str = "auto", tracer=None,
+                       pipeline_rounds: bool = True,
                        ) -> Tuple[List[np.ndarray], int]:
     """Drive the fused step over fully-materialized arrays: bounded rounds
     of ``rows_per_round`` rows per shard (0 = one shot) through
@@ -650,15 +576,14 @@ def run_fused_exchange(mesh: VirtualMesh, rows: np.ndarray,
               for start in range(0, len(rows), per_round))
     return run_fused_exchange_rounds(
         mesh, blocks, row_words, cap, key_words=key_words,
-        out_factor=out_factor, impl=impl, sort_mode=sort_mode,
-        tracer=tracer, pipeline_rounds=pipeline_rounds)
+        out_factor=out_factor, impl=impl, tracer=tracer,
+        pipeline_rounds=pipeline_rounds)
 
 
 def run_fused_exchange_rounds(mesh: VirtualMesh, blocks, row_words: int,
                               rows_per_round: int, *, key_words: int = 2,
                               out_factor: int = 2, impl: str = "auto",
-                              sort_mode: str = "gather", tracer=None,
-                              pipeline_rounds: bool = True,
+                              tracer=None, pipeline_rounds: bool = True,
                               ) -> Tuple[List[np.ndarray], int]:
     """Drive the fused step over a stream of round blocks: ``blocks``
     yields ``(rows u32[<= rows_per_round * D, row_words], dest i32)`` per
@@ -679,8 +604,7 @@ def run_fused_exchange_rounds(mesh: VirtualMesh, blocks, row_words: int,
     tracer = tracer if tracer is not None else trace_mod.NULL
     n = mesh.num_shards
     per_round = max(1, rows_per_round) * n
-    step = make_fused_step(mesh, row_words, out_factor=out_factor,
-                           impl=impl, sort_mode=sort_mode,
+    step = make_fused_step(mesh, out_factor=out_factor, impl=impl,
                            key_words=key_words, partition="dest")
     io = _RoundIO(mesh.device, 2)
     runs: List[list] = [[] for _ in range(n)]
@@ -740,7 +664,7 @@ def run_fused_exchange_rounds(mesh: VirtualMesh, blocks, row_words: int,
 def _run_keys(r: np.ndarray, key_words: int) -> np.ndarray:
     """Sort/merge keys of shard-row runs: the little-endian packed u64 of
     columns 0-1 (column 1 the high word) for the 2-word layout, column 0
-    otherwise; the order ``_row_keys`` sorts by on the card."""
+    otherwise; the order ``ops/sort.py::row_keys`` sorts by on the card."""
     if key_words == 2:
         return r[:, :2].copy().view(np.uint64).reshape(-1)
     return r[:, 0]
@@ -752,7 +676,7 @@ def run_hierarchical_exchange(mesh: VirtualMesh,
                               home_slice: np.ndarray, *,
                               key_words: int = 2, rows_per_round: int = 0,
                               out_factor: int = 2, impl: str = "auto",
-                              sort_mode: str = "gather", tracer=None,
+                              tracer=None,
                               ) -> Tuple[List[np.ndarray], int]:
     """Drive the factored two-phase redistribution over a multi-slice
     topology: local regroup -> cross-slice move -> local regroup.
@@ -785,7 +709,7 @@ def run_hierarchical_exchange(mesh: VirtualMesh,
         return run_fused_exchange(
             mesh, rows, dest, key_words=key_words,
             rows_per_round=rows_per_round, out_factor=out_factor,
-            impl=impl, sort_mode=sort_mode, tracer=tracer)
+            impl=impl, tracer=tracer)
     dest = np.asarray(dest, dtype=np.int32)
     home = np.asarray(home_slice, dtype=np.int32)
     dest_slice = topology.device_slices()[dest] if len(dest) else dest
@@ -830,9 +754,9 @@ def run_hierarchical_exchange(mesh: VirtualMesh,
             cap = rows_per_round if rows_per_round > 0 else -(-len(rs) // ns)
             per_round = max(1, cap) * ns
             step = make_fused_step(
-                topology_mod.slice_mesh(mesh, topology, s), row_words,
-                out_factor=out_factor, impl=impl, sort_mode=sort_mode,
-                key_words=key_words, partition="dest")
+                topology_mod.slice_mesh(mesh, topology, s),
+                out_factor=out_factor, impl=impl, key_words=key_words,
+                partition="dest")
             chunks = [(rs[o:o + per_round], ds[o:o + per_round])
                       for o in range(0, len(rs), per_round)]
             sched.append((s, lo, ns, per_round, step, chunks))

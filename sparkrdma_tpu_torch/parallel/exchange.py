@@ -124,6 +124,17 @@ def spread_index(valid: torch.Tensor, index: torch.Tensor,
             + torch.arange(d, device=dev)[:, None] * width)
 
 
+def receive_buffer(like: torch.Tensor, rows: int) -> torch.Tensor:
+    """The port's one receive buffer: zeros ``[D, rows, ...]`` with
+    ``like``'s leading axis, row shape, dtype and device, filled under the
+    ``exchange.receive_fill`` span. A transport writes each receiver's
+    rows from position 0 on; the zeros are what a receiver holds past its
+    received total."""
+    with trace_mod.span("exchange.receive_fill"):
+        return torch.zeros((like.shape[0], rows) + tuple(like.shape[2:]),
+                           dtype=like.dtype, device=like.device)
+
+
 def _slot_fill(data: torch.Tensor, starts: torch.Tensor,
                counts: torch.Tensor, n: int, q: int):
     """Fill fixed per-destination slots: result ``[D, n*q, ...]`` where
@@ -223,8 +234,8 @@ def ragged_exchange_shard(data: torch.Tensor, send_counts: torch.Tensor,
       send_counts: ``[D, D]`` — ``send_counts[d, j]`` rows shard d sends
         to shard j.
       output: optional ``[D, out_capacity, ...]`` receive buffer
-        (defaults to zeros shaped like ``data``); supplies the rows past
-        each shard's received total.
+        (defaults to ``receive_buffer(data, capacity)``); supplies the
+        rows past each shard's received total.
       impl: ``native``, ``ring``, ``dense``, ``gather`` or ``auto`` (see
         ``resolve_impl``). Identical results whenever the slots fit.
         ``native`` writes into ``output`` in place and returns it as
@@ -249,8 +260,7 @@ def ragged_exchange_shard(data: torch.Tensor, send_counts: torch.Tensor,
     mat = send_counts.to(torch.int32)
     n = mat.shape[0]
     if output is None:
-        with trace_mod.span("exchange.receive_fill"):
-            output = torch.zeros_like(data)
+        output = receive_buffer(data, data.shape[1])
     q = slot_rows or output.shape[1] // n
     if impl in ("dense", "ring") and q < 1:
         # a zero-row slot can carry nothing; gather handles any capacity
@@ -443,8 +453,7 @@ def ragged_exchange_global(mesh: GlobalMesh, data: torch.Tensor,
     mat_host = np.asarray(counts_host, dtype=np.int64).reshape(g, g)
     mat = torch.from_numpy(mat_host.astype(np.int32)).to(data.device)
     if output is None:
-        with trace_mod.span("exchange.receive_fill"):
-            output = torch.zeros_like(data)
+        output = receive_buffer(data, data.shape[1])
     recv_true = mat.t()[lo:lo + dl]
     pair_overflow = torch.zeros(dl, dtype=torch.bool, device=data.device)
     q = max(1, slot_rows or global_slot_rows(mat_host, output.shape[1],
@@ -534,6 +543,21 @@ def shuffle_shard(data: torch.Tensor, dest: torch.Tensor,
                          counts_host=counts_host)
 
 
+def shuffle_into(rows: torch.Tensor, dest: torch.Tensor, capacity: int,
+                 impl: str) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """One shuffle of ``rows [D, N, ...]`` to ``dest [D, N]`` (``dest <
+    0``: not sent) into a receive buffer of ``capacity`` rows a shard.
+    Returns ``(received [D, capacity, ...], valid bool[D, capacity],
+    overflowed bool[D])``: ``valid`` marks each shard's received rows,
+    which come first."""
+    received, recv_counts, _, overflowed = shuffle_shard(
+        rows, dest, output=receive_buffer(rows, capacity), impl=impl)
+    valid = (torch.arange(capacity, device=rows.device)
+             < recv_counts.sum(dim=1, keepdim=True))
+    return received, valid, overflowed
+
+
 @functools.lru_cache(maxsize=64)
 def make_shuffle_exchange(mesh, impl: str = "auto", out_factor: int = 1):
     """The all-shard shuffle exchange over ``mesh`` (a ``VirtualMesh`` or
@@ -555,11 +579,7 @@ def make_shuffle_exchange(mesh, impl: str = "auto", out_factor: int = 1):
 
     def exchange(data: torch.Tensor, dest: torch.Tensor,
                  counts_host: Optional[np.ndarray] = None):
-        with trace_mod.span("exchange.receive_fill"):
-            output = torch.zeros(
-                (data.shape[0], data.shape[1] * out_factor)
-                + tuple(data.shape[2:]), dtype=data.dtype,
-                device=data.device)
+        output = receive_buffer(data, data.shape[1] * out_factor)
         return shuffle_shard(data, dest.reshape(data.shape[:2]), output,
                              impl, global_mesh, counts_host)
 
@@ -602,8 +622,8 @@ def _chunked_round(grouped: torch.Tensor, counts: torch.Tensor,
         with trace_mod.span("chunked.transport"):
             got = _ring_move_blocks(blocks)
         with trace_mod.span("chunked.pack"):
-            received = _pack_by_source(got, recv_counts,
-                                       torch.zeros_like(filled))
+            received = _pack_by_source(
+                got, recv_counts, receive_buffer(filled, filled.shape[1]))
         return received, recv_counts
     # collective transports take a compact destination-grouped send
     # buffer: the slot blocks packed by destination (rows past the total
@@ -714,6 +734,8 @@ def chunked_exchange_resident(mesh, grouped: torch.Tensor,
     cap_out = max(1, int(recv_totals.max()))
     impl = resolve_transport(mesh, impl)
     counts_d = torch.from_numpy(counts_host).to(mesh.device)
+    # an accumulator, not a receive buffer: every round adds into it, so
+    # all of it must start zero
     acc = torch.zeros((n, cap_out) + tuple(grouped.shape[2:]),
                       dtype=grouped.dtype, device=mesh.device)
     for r in range(num_rounds):

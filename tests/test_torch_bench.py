@@ -143,7 +143,7 @@ def test_dense_guard_runs_both_transports(monkeypatch):
 
     monkeypatch.setattr(tt, "make_terasort_step", spy)
     cfg = tt.TeraSortConfig(rows_per_device=512, payload_words=24,
-                            out_factor=2, sort_mode="gather")
+                            out_factor=2)
     rows = tt.generate_rows(cfg, 8, seed=1)
     detail = {}
     tbench._bench_dense_guard(detail, VirtualMesh(8, "cpu"), "dense", cfg,
@@ -181,13 +181,3 @@ def test_secondary_records_a_failure_under_its_prefix():
 
     tbench._bench_secondary(detail, "join", "join_rows_per_s", broken, 1)
     assert detail == {"join_error": "RuntimeError: no such table"}
-
-
-@pytest.mark.parametrize("knob,mode", [
-    (None, "gather"), ("colsort", "colsort"), ("bogus", "gather")])
-def test_sort_mode_knob(monkeypatch, knob, mode):
-    if knob is None:
-        monkeypatch.delenv("BENCH_SORT_MODE", raising=False)
-    else:
-        monkeypatch.setenv("BENCH_SORT_MODE", knob)
-    assert tbench._sort_mode() == mode

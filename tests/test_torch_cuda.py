@@ -990,13 +990,13 @@ def _merge_on_card(received, counts):
     """The kernel on the card against ``sort_received`` there, byte for
     byte, one launch a call."""
     from sparkrdma_tpu_torch.ops import run_merge as rm
-    from sparkrdma_tpu_torch.parallel import device_plane
+    from sparkrdma_tpu_torch.ops.sort import sort_received
 
     before = rm.LAUNCHES
     got = rm.merge_runs(received, counts)
     torch.cuda.synchronize()
     assert rm.LAUNCHES == before + 1
-    assert torch.equal(got, device_plane.sort_received(received, counts))
+    assert torch.equal(got, sort_received(received, counts))
     return got
 
 
@@ -1047,7 +1047,7 @@ def test_run_merge_at_terasorts_shape_from_a_range_exchange(cuda,
         make_terasort_step,
     )
     from sparkrdma_tpu_torch.ops import run_merge as rm
-    from sparkrdma_tpu_torch.parallel import device_plane
+    from sparkrdma_tpu_torch.ops.sort import sort_received
     from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 
     kept = []
@@ -1068,7 +1068,7 @@ def test_run_merge_at_terasorts_shape_from_a_range_exchange(cuda,
     received, got_counts = kept[0]
     assert received.shape == (8, 8_000_000, 25)
     assert torch.equal(got_counts, counts)
-    want = device_plane.sort_received(received, counts)
+    want = sort_received(received, counts)
     assert torch.equal(out, want)
 
 

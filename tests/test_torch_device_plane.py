@@ -280,7 +280,7 @@ def test_round_slots_fit_destination_grouped_rows(mesh, vmesh, port_impl,
     ragged (``gather``) result."""
     rows, dest = _by_destination(_rows(3000, 2, 8)[0])
     cap = rows_per_round or -(-len(rows) // D)
-    step = tdp.make_fused_step(vmesh, 3, out_factor=4, impl=port_impl,
+    step = tdp.make_fused_step(vmesh, out_factor=4, impl=port_impl,
                                key_words=2, partition="dest")
     block = torch.from_numpy(rows[:cap * D].view(np.int32)).reshape(
         D, cap, 3)

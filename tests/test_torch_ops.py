@@ -2,7 +2,10 @@
 ``make_shuffle_exchange`` with the JAX package's on the same numpy input.
 
 ``ops/sort``: distinct keys compare bit for bit with ``lax.sort`` (which
-promises no order for ties); ties are held to a numpy stable argsort.
+promises no order for ties); ties are held to a numpy stable argsort;
+``sort_rows`` to the JAX device plane's ``_local_sort`` (``gather``,
+whose iota tiebreak makes its order total), and ``lookup_unique`` to the
+JAX query plans' ``_lookup``, shard by shard.
 ``ops/aggregate``: the five cases of ``tests/test_aggregate.py`` (every
 op, count, all padding, a single key, exact capacity) plus the truncation
 signal, one shard and a batch of shards. ``make_shuffle_exchange``:
@@ -17,8 +20,10 @@ import pytest
 import torch
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from sparkrdma_tpu.models import tpcds_queries as jq
 from sparkrdma_tpu.ops import aggregate as jagg
 from sparkrdma_tpu.ops import sort as jsort
+from sparkrdma_tpu.parallel import device_plane as jdp
 from sparkrdma_tpu.parallel.exchange import make_shuffle_exchange as jmake
 from sparkrdma_tpu_torch.ops import aggregate as tagg
 from sparkrdma_tpu_torch.ops import sort as tsort
@@ -121,6 +126,65 @@ def test_merge_sorted_padded_matches_jax():
         torch.from_numpy(np.stack([counts, counts[::-1] * 2])))
     np.testing.assert_array_equal(batched.numpy()[0], want)
     assert batched.numpy()[1].sum() == min(16, 2 * counts.sum())
+
+
+@pytest.mark.parametrize("key_words,pads", [
+    (1, False), (1, True), (2, False), (2, True)])
+def test_sort_rows_matches_jax_local_sort(key_words, pads):
+    """``sort_rows`` against the JAX package's ``_local_sort`` in its
+    ``gather`` mode, shard by shard: key words of five values (ties in
+    every word), live keys at the u32 maximum, and with ``pads`` a
+    quarter of the rows masked to the sentinel on every key word."""
+    rng = np.random.default_rng(20 + 2 * key_words + pads)
+    n, w = 96, 4
+    rows = rng.integers(0, 2**32, size=(D, n, w), dtype=np.uint64).astype(
+        np.uint32)
+    rows[..., :key_words] = rng.integers(0, 5, size=(D, n, key_words))
+    rows[rng.random((D, n)) < 0.1, 0] = U32_MAX
+    words = [rows[..., 0]] if key_words == 1 else [rows[..., 1],
+                                                   rows[..., 0]]
+    if pads:
+        pad = rng.random((D, n)) < 0.25
+        words = [np.where(pad, U32_MAX, k) for k in words]
+    got_key, got_rows = tsort.sort_rows(
+        _bits(rows), tuple(torch.from_numpy(k.astype(np.int64))
+                           for k in words))
+    for d in range(D):
+        want_rows, want_key = jdp._local_sort(
+            jnp.asarray(rows[d]), tuple(jnp.asarray(k[d]) for k in words),
+            "gather", False)
+        np.testing.assert_array_equal(_u32(got_rows)[d],
+                                      np.asarray(want_rows))
+        np.testing.assert_array_equal(got_key.numpy()[d],
+                                      np.asarray(want_key).astype(np.int64))
+
+
+def test_lookup_unique_matches_jax_lookup():
+    """``lookup_unique`` against the JAX query plans' ``_lookup`` run on
+    each shard's ``jnp`` arrays: every probe's attribute and found flag,
+    with probes that miss and sentinel probes, which are never found."""
+    rng = np.random.default_rng(31)
+    m, n = 40, 120
+    dim_keys = np.stack([rng.permutation(200)[:m]
+                         for _ in range(D)]).astype(np.uint32)
+    dim_attr = rng.integers(0, 2**32, size=(D, m), dtype=np.uint64).astype(
+        np.uint32)
+    dim_valid = rng.random((D, m)) < 0.8
+    probes = rng.integers(0, 200, size=(D, n)).astype(np.uint32)
+    sentinel = rng.random((D, n)) < 0.1
+    probes[sentinel] = U32_MAX
+    attr, found = tsort.lookup_unique(
+        _bits(dim_keys), torch.from_numpy(dim_valid), _bits(dim_attr),
+        torch.from_numpy(probes.astype(np.int64)))
+    attr, found = attr.numpy(), found.numpy()
+    for d in range(D):
+        want_attr, want_found = jq._lookup(
+            jnp.asarray(dim_keys[d]), jnp.asarray(dim_valid[d]),
+            jnp.asarray(dim_attr[d]), jnp.asarray(probes[d]))
+        np.testing.assert_array_equal(found[d], np.asarray(want_found))
+        np.testing.assert_array_equal(attr[d], np.asarray(want_attr))
+    assert not found[sentinel].any()
+    assert found.any() and not found[~sentinel].all()
 
 
 # -- ops/aggregate -----------------------------------------------------------

@@ -22,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from sparkrdma_tpu_torch.models.terasort import TeraSortConfig, run_terasort
 from sparkrdma_tpu_torch.ops import run_merge as rm
+from sparkrdma_tpu_torch.ops.sort import sort_received
 from sparkrdma_tpu_torch.parallel import device_plane
 from sparkrdma_tpu_torch.parallel import exchange
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
@@ -135,7 +136,7 @@ def test_plain_is_the_sort_of_the_whole_buffer(d, w, kind):
     rows = 24 * d
     counts = torch.from_numpy(_counts(d, d, "random", rows, seed=d * w))
     received = _received(counts.numpy(), rows, w, kind, seed=d + w)
-    want = device_plane.sort_received(received, counts)
+    want = sort_received(received, counts)
     got = merge_runs_plain(received, counts)
     assert _same_bytes(got, want)
     before = rm.LAUNCHES
@@ -153,7 +154,7 @@ def test_plain_at_the_count_edges(case, kind):
         rows = 64
         counts = torch.from_numpy(_counts(d, s, case, rows, seed=s + d))
         received = _received(counts.numpy(), rows, 3, kind, seed=s)
-        want = device_plane.sort_received(received, counts)
+        want = sort_received(received, counts)
         assert _same_bytes(merge_runs_plain(received, counts), want)
 
 
@@ -215,7 +216,7 @@ def _captured_step(monkeypatch, d: int, w: int, impl: str,
         return inner(received, recv_counts)
     monkeypatch.setattr(rm, "merge_runs", kept)
     step = device_plane.make_fused_step(
-        VirtualMesh(d, "cpu"), w, out_factor=out_factor, impl=impl,
+        VirtualMesh(d, "cpu"), out_factor=out_factor, impl=impl,
         partition="range")
     return step, seen
 
@@ -231,7 +232,7 @@ def test_range_step_merges_to_the_sort(monkeypatch, d, w, kind):
     assert len(seen) == 1
     received, recv_counts = seen[0]
     assert torch.equal(recv_counts, counts)
-    assert _same_bytes(out, device_plane.sort_received(received, counts))
+    assert _same_bytes(out, sort_received(received, counts))
 
 
 @pytest.mark.parametrize("impl", ["gather", "native", "ring", "dense"])
@@ -246,7 +247,7 @@ def test_range_step_on_every_transport(monkeypatch, impl, kind):
     out, counts, overflowed = step(rows_from_numpy(rows, VirtualMesh(
         d, "cpu")))
     received, _ = seen[0]
-    assert _same_bytes(out, device_plane.sort_received(received, counts))
+    assert _same_bytes(out, sort_received(received, counts))
     if kind == "one_receiver":
         assert overflowed[1] and counts[1].sum() > out.shape[1]
     else:
@@ -302,22 +303,24 @@ def test_range_step_over_a_global_mesh_shape(monkeypatch):
     received = exchange._gather_exchange(data, mat, output, lo)
     counts = mat.t()[lo:lo + dl].contiguous()
     assert counts.shape == (dl, g)
-    want = device_plane.sort_received(received, counts)
+    want = sort_received(received, counts)
     assert _same_bytes(rm.merge_runs(received, counts), want)
 
 
 def test_dest_step_still_sorts(monkeypatch):
     calls = {"sort": 0, "merge": 0}
-    sort, merge = device_plane.sort_received, rm.merge_runs
+    merge = rm.merge_runs
 
-    def counted_sort(*a):
+    def counted_sort(*a, **kw):
         calls["sort"] += 1
-        return sort(*a)
+        return sort_received(*a, **kw)
 
     def counted_merge(*a):
         calls["merge"] += 1
         return merge(*a)
+    # each caller's own binding of ``ops.sort.sort_received``
     monkeypatch.setattr(device_plane, "sort_received", counted_sort)
+    monkeypatch.setattr(rm, "sort_received", counted_sort)
     monkeypatch.setattr(rm, "merge_runs", counted_merge)
     d, cap, w = 4, 16, 3
     mesh = VirtualMesh(d, "cpu")
@@ -325,11 +328,11 @@ def test_dest_step_still_sorts(monkeypatch):
     rows = rng.integers(0, 2**32, (d * cap, w), dtype=np.uint64).astype(
         np.uint32)
     dest = torch.from_numpy(rng.integers(-1, d, (d, cap)))
-    step = device_plane.make_fused_step(mesh, w, partition="dest",
+    step = device_plane.make_fused_step(mesh, partition="dest",
                                         impl="native")
     step(rows_from_numpy(rows, mesh), dest)
     assert calls == {"sort": 1, "merge": 0}
-    step = device_plane.make_fused_step(mesh, w, partition="range",
+    step = device_plane.make_fused_step(mesh, partition="range",
                                         impl="native")
     step(rows_from_numpy(rows, mesh))
     assert calls == {"sort": 2, "merge": 1}   # the CPU merge is the sort
@@ -338,7 +341,7 @@ def test_dest_step_still_sorts(monkeypatch):
 def test_merge_bytes_counts_rows_read_and_written():
     d, w, cap = 4, 25, 30
     mesh = VirtualMesh(d, "cpu")
-    step = device_plane.make_fused_step(mesh, w, impl="native")
+    step = device_plane.make_fused_step(mesh, impl="native")
     rows = rows_from_numpy(_range_inputs(d, w, "uniform", cap, seed=9),
                            mesh)
     assert not trace.counting()          # the next counted call starts at 0
@@ -538,8 +541,7 @@ def test_emulated_kernel_is_the_plain_merge(kind, case, tile):
         counts = torch.from_numpy(_counts(d, s, case, rows, seed=d + s))
         received = _received(counts.numpy(), rows, 2, kind, seed=s)
         got = _emulated_merge(received, counts, tile, [0])
-        assert _same_bytes(got, device_plane.sort_received(received,
-                                                           counts))
+        assert _same_bytes(got, sort_received(received, counts))
 
 
 @pytest.mark.parametrize("runs", [17, rm.MAX_RUNS])
@@ -550,7 +552,7 @@ def test_emulated_kernel_with_a_run_a_lane_of_a_whole_warp(runs):
                                       seed=runs) + 2)
     received = _received(counts.numpy(), rows, 1, "ties", seed=runs)
     got = _emulated_merge(received, counts, 16, [0])
-    assert _same_bytes(got, device_plane.sort_received(received, counts))
+    assert _same_bytes(got, sort_received(received, counts))
 
 
 @pytest.mark.parametrize("tile", [1, 5, 16])

@@ -62,7 +62,8 @@ def test_run_terasort_matches_jax(mesh, vmesh, port_impl, jax_impl):
 
 @pytest.mark.parametrize("sort_mode", ["gather", "multisort", "colsort"])
 def test_sort_modes_match_jax(mesh, vmesh, sort_mode):
-    """All three names give the stable tie order, as in JAX."""
+    """Each of the JAX package's three local-sort strategies gives the
+    stable tie order of the port's one sort (``ops/sort.py::sort_rows``)."""
     # out_factor 4: a 128-row shard with ties needs pair-slot headroom
     cfg = jt.TeraSortConfig(rows_per_device=128, payload_words=3,
                             out_factor=4, sort_mode=sort_mode)
@@ -70,21 +71,19 @@ def test_sort_modes_match_jax(mesh, vmesh, sort_mode):
     want, want_counts, _ = jt.run_terasort(mesh, cfg, impl="dense",
                                            rows=rows)
     got, counts, _ = tt.run_terasort(
-        vmesh, tt.TeraSortConfig(128, 3, 4, sort_mode), impl="ring",
+        vmesh, tt.TeraSortConfig(128, 3, 4), impl="ring",
         rows=rows)
     np.testing.assert_array_equal(counts, want_counts)
     np.testing.assert_array_equal(got, want)
 
 
 def test_bad_names_raise(vmesh):
-    with pytest.raises(ValueError, match="unknown sort_mode"):
-        make_fused_step(vmesh, 3, sort_mode="radix")
     with pytest.raises(ValueError, match="unknown partition"):
-        make_fused_step(vmesh, 3, partition="hash")
+        make_fused_step(vmesh, partition="hash")
     with pytest.raises(ValueError, match="single-word"):
-        make_fused_step(vmesh, 3, key_words=2, partition="range")
+        make_fused_step(vmesh, key_words=2, partition="range")
     # native is a transport of one card too (the ragged kernel)
-    assert callable(make_fused_step(vmesh, 3, impl="native"))
+    assert callable(make_fused_step(vmesh, impl="native"))
 
 
 def test_small_run_matches_numpy_terasort(vmesh):
@@ -113,7 +112,7 @@ def test_dest_partition_matches_jax(mesh, vmesh, key_words, port_impl,
     sh = NamedSharding(mesh, P("shuffle"))
     want = [np.asarray(a) for a in jax.block_until_ready(
         step(jax.device_put(rows, sh), jax.device_put(dest, sh)))]
-    tstep = make_fused_step(vmesh, width, out_factor=4, impl=port_impl,
+    tstep = make_fused_step(vmesh, out_factor=4, impl=port_impl,
                             key_words=key_words, partition="dest")
     out, counts, overflowed = tstep(rows_from_numpy(rows, vmesh),
                                     torch.from_numpy(dest.reshape(D, cap)))
@@ -132,7 +131,7 @@ def test_single_shard_matches_jax(partition):
     step = jax_step(mesh1, "shuffle", 3, partition=partition, impl="gather")
     args = (rows,) if partition == "range" else (rows, dest)
     want = [np.asarray(a) for a in step(*args)]
-    tstep = make_fused_step(vmesh1, 3, partition=partition)
+    tstep = make_fused_step(vmesh1, partition=partition)
     targs = ((rows_from_numpy(rows, vmesh1),) if partition == "range" else
              (rows_from_numpy(rows, vmesh1),
               torch.from_numpy(dest.reshape(1, -1))))

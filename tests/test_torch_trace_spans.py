@@ -34,6 +34,7 @@ from sparkrdma_tpu_torch.parallel import exchange  # noqa: E402
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh, take_rows  # noqa: E402
 from sparkrdma_tpu_torch.utils import trace  # noqa: E402
 from sparkrdma_tpu_torch.utils.trace import Tracer  # noqa: E402
+from sparkrdma_tpu_torch.utils.u32 import rows_from_numpy  # noqa: E402
 
 # the cells' configurations cut to a CPU test's size
 SMALL = {
@@ -178,6 +179,49 @@ def test_the_helper_is_one_shared_no_op_when_off():
     (event,) = tracer.events("exchange.round")
     assert (event["cat"], event["ph"], event["args"]) == (
         "exchange", "X", {"round": 4, "rows": 9})
+
+
+def _model_step(kind: str):
+    """One step of a model the port runs on ``native``, at a CPU test's
+    size, and the shuffles that step makes."""
+    from sparkrdma_tpu_torch.models import join, pagerank, terasort, tpcds
+    from sparkrdma_tpu_torch.models import tpcds_queries
+
+    vmesh = VirtualMesh(8, "cpu")
+    if kind == "q95":
+        cfg = tpcds_queries.Q95Config(ws_rows_per_device=64, num_orders=100)
+        return 8, lambda: tpcds_queries.run_q95(vmesh, cfg, seed=2,
+                                                impl="native")
+    if kind == "terasort":
+        cfg = terasort.TeraSortConfig(64, 2)
+        step = terasort.make_terasort_step(vmesh, cfg, "native")
+        rows = rows_from_numpy(terasort.generate_rows(cfg, 8, 2), vmesh)
+        return 1, lambda: step(rows)
+    if kind == "star_join":
+        cfg = tpcds.TpcdsConfig(fact_rows_per_device=64, dim1_size=50,
+                                dim2_size=40)
+        return 5, lambda: tpcds.run_tpcds(vmesh, cfg, seed=2, impl="native")
+    if kind == "shuffle_join":
+        cfg = join.JoinConfig(64, 64, 100)
+        return 2, lambda: join.run_join(vmesh, cfg, seed=2, impl="native")
+    cfg = pagerank.PageRankConfig(num_vertices=64, edges_per_device=32)
+    return 1, lambda: pagerank.run_pagerank(vmesh, cfg, 1, seed=2,
+                                            impl="native")
+
+
+@pytest.mark.parametrize("kind", ["q95", "terasort", "star_join",
+                                  "shuffle_join", "pagerank"])
+def test_each_shuffle_fills_one_receive_buffer(kind):
+    """Every model step builds its receive buffers through
+    ``exchange.receive_buffer``: a profiled step opens one
+    ``exchange.receive_fill`` for each shuffle it makes (one
+    ``exchange.transport`` each on ``native``)."""
+    shuffles, run = _model_step(kind)
+    with _profile() as prof:
+        run()
+    names = [e.name for e in prof.events()]
+    assert names.count("exchange.transport") == shuffles
+    assert names.count("exchange.receive_fill") == shuffles
 
 
 # -- one clock ---------------------------------------------------------------
