@@ -49,6 +49,18 @@ printing one JSON line; any failure raises and the exit code is not 0:
    phase's worker processes too), each counted path's merge launches
    are held to its own range steps, and the end holds the process's
    launches to all of them;
+   then kernel_partition: the stable partition by destination
+   ``dest_partition`` (under every grouping) against its plain version,
+   byte for byte and one launch a call, at q95's SF10 groupings (the
+   fact rows of round 1 and a padded receive buffer of rounds 2-4), timed
+   against its byte bound, the plain version and ``torch.sort`` with
+   ``searchsorted`` on int32 destinations (``library_ms``); every CUDA
+   ``group_by_destination`` call with rows is counted (in the worker
+   processes of the multihost and analysis phases too), each counted
+   path's partition launches are held to its own groupings, the paths
+   that group (q95, q64, the ``dest`` step, ALS, PageRank, the mesh
+   reduce) must have launched it, and the end holds the process's
+   launches to all of them;
 4. main path: TeraSort of 1 GiB of 100-byte rows over an 8-shard virtual
    mesh with ``impl="auto"`` (the ragged kernel) and again with
    ``impl="ring"`` (BASELINE.md config #1), counting each kernel's
@@ -246,6 +258,7 @@ from sparkrdma_tpu_torch.models.terasort import (
 )
 from sparkrdma_tpu_torch.ops import (
     _build,
+    dest_partition,
     ragged_exchange,
     ring_exchange,
     row_gather,
@@ -336,11 +349,18 @@ PATH_RING_SHAPES = ((8, 8, 131072, 2), (8, 8, 262144, 2), (8, 8, 14746, 2),
                     (8, 8, 25000, 5), (8, 8, 29, 3))
 # csrc/ sources: the ring and ragged kernels are in one, the row gather
 # and the receive merge each in one of their own
-KERNELS = ("ring_exchange", "row_gather", "run_merge")
+KERNELS = ("ring_exchange", "row_gather", "run_merge", "dest_partition")
 RING = "ring_all_to_all"
 NATIVE = "ragged_all_to_all"
 GATHER = "row_gather"
 MERGE = "run_merge"
+# the partition by destination's cases: (name, shards, rows a shard, share
+# of pads): q95's SF10 fact rows of round 1 and a padded receive buffer of
+# rounds 2-4 (three times the live rows)
+PARTITION_CASES = (
+    ("q95.round1", 8, 899_696, 0.0),
+    ("q95.group", 8, 2_699_088, 2 / 3),
+)
 # the receive merge's cases: (name, shards, rows a shard, row words), the
 # receive of a range step over rows made on the card: the main path's
 # 1 GiB TeraSort and the benchmark's HiBench large
@@ -348,6 +368,16 @@ MERGE_CASES = (
     ("terasort.1gib", 8, 1024 * 1024 * 1024 // 100 // 8, 25),
     ("terasort.hibench_large", 8, 4_000_000, 25),
 )
+# CUDA group_by_destination calls with rows in this process, counted by
+# the wrapper _count_groupings installs: each partitions once; the
+# partition's launches of the process, banked from dest_partition.LAUNCHES
+# each time _launches zeroes it; its launches per counted path, set by
+# _launches; the paths that must have grouped on the card
+GROUPINGS = {"calls": 0}
+PARTITION_BANKED = {"launches": 0}
+PARTITION_OF_PATH: dict = {}
+GROUPING_PATHS = ("q95", "q64", "fused_rounds", "chunked/als", "pagerank",
+                  "mesh_service/fused_rounds")
 # CUDA range steps over more than one shard run in this process, counted
 # by the wrapper _count_range_steps installs: each merges once; the
 # merge's launches of the process, banked from run_merge.LAUNCHES each
@@ -963,6 +993,23 @@ def _count_take_rows() -> None:
             mod.take_rows = counted
 
 
+def _count_groupings() -> None:
+    """Count each CUDA ``group_by_destination`` call with rows in
+    ``GROUPINGS``: every module of the port that holds
+    ``group_by_destination`` (``parallel.exchange`` included, whose
+    ``shuffle_shard`` calls it) gets a counting wrapper."""
+    inner = exchange.group_by_destination
+
+    def counted(data, dest, num_partitions):
+        if dest.is_cuda and dest.numel():
+            GROUPINGS["calls"] += 1
+        return inner(data, dest, num_partitions)
+    for mod in list(sys.modules.values()):
+        if (getattr(mod, "__name__", "").startswith("sparkrdma_tpu_torch")
+                and getattr(mod, "group_by_destination", None) is inner):
+            mod.group_by_destination = counted
+
+
 def _range_receive(d: int, n: int, w: int, seed: int):
     """The receive buffer and counts that one TeraSort range step over
     rows made on the card hands the merge, and the step's output."""
@@ -1043,6 +1090,72 @@ def phase_kernel_merge() -> dict:
             "library_ms": main["library_ms"], "by_shape": by_shape}
 
 
+def phase_kernel_partition() -> dict:
+    """The partition by destination at ``PARTITION_CASES``: byte for byte
+    against its plain version (order and totals) and one launch a call;
+    timed against the bytes it must move at the card's memory rate (each
+    destination read and each index written), the plain version (a stable
+    sort of the destinations widened to int64, a search and a difference)
+    and ``torch.sort`` with ``searchsorted`` on the int32 destinations,
+    pads mapped up front (``library_ms``). Returns the kernel's row; the
+    phase's own launches leave ``dest_partition.LAUNCHES`` as it was."""
+    first = dest_partition.LAUNCHES
+    by_shape = []
+    parts = SHARDS
+    for i, (name, d, n, pad_share) in enumerate(PARTITION_CASES):
+        gen = torch.Generator(device="cuda").manual_seed(500 + i)
+        dest = torch.randint(0, parts, (d, n), dtype=torch.int32,
+                             device="cuda", generator=gen)
+        pads = torch.rand((d, n), device="cuda", generator=gen) < pad_share
+        dest = torch.where(pads, -1, dest)
+        before = dest_partition.LAUNCHES
+        got = dest_partition.dest_partition(dest, parts)
+        want = dest_partition.dest_partition_plain(dest, parts)
+        torch.cuda.synchronize()
+        if dest_partition.LAUNCHES != before + 1:
+            raise AssertionError(f"dest_partition launched "
+                                 f"{dest_partition.LAUNCHES - before} times "
+                                 f"at {name}")
+        for g, w, what in zip(got, want, ("order", "totals")):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"dest_partition's {what} != plain at "
+                                     f"{name}")
+        err = max(_max_abs_err(g, w) for g, w in zip(got, want))
+        del got, want
+        mapped = torch.where(dest < 0, parts, dest)
+        bounds = torch.arange(parts + 2, dtype=torch.int32,
+                              device="cuda").expand(d, -1).contiguous()
+
+        def library():
+            keys, order = torch.sort(mapped, dim=1, stable=True)
+            return order, torch.searchsorted(keys, bounds)
+
+        moved = d * n * (dest.element_size() + 8)
+        ms = cuda_ms(lambda: dest_partition.dest_partition(dest, parts), 5, 5)
+        entry = {"case": name, "shape": [d, n], "partitions": parts,
+                 "pad_share": pad_share, "bytes_moved": moved, "ms": ms,
+                 "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                 "plain_ms": cuda_ms(
+                     lambda: dest_partition.dest_partition_plain(dest, parts),
+                     3, 3),
+                 "library_ms": cuda_ms(library, 3, 3),
+                 "max_abs_err": err}
+        entry["roofline_share"] = entry["bound_ms"] / ms
+        entry["vs_library"] = entry["library_ms"] / ms
+        by_shape.append(entry)
+        emit({"phase": "kernel_partition", **entry})
+        del dest, pads, mapped, bounds
+        torch.cuda.empty_cache()
+    dest_partition.LAUNCHES = first
+    main = by_shape[-1]
+    return {"name": "dest_partition", "route": "cuda",
+            "source": "sparkrdma_tpu_torch/csrc/dest_partition.cu",
+            "replaces": None, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": main["library_ms"], "by_shape": by_shape}
+
+
 def _count_range_steps() -> None:
     """Count each call of a CUDA ``range`` step over more than one shard
     in ``RANGE_STEPS``: every module of the port that holds
@@ -1080,6 +1193,23 @@ def _check_merge_launches() -> None:
         raise AssertionError(
             f"run_merge launched {MERGE_BANKED['launches']} times after its "
             f"phase; {RANGE_STEPS['calls']} CUDA range steps ran")
+
+
+def _bank_partition_counts() -> None:
+    """Add ``dest_partition.LAUNCHES`` to ``PARTITION_BANKED`` and set it
+    to 0."""
+    PARTITION_BANKED["launches"] += dest_partition.LAUNCHES
+    dest_partition.LAUNCHES = 0
+
+
+def _check_partition_launches() -> None:
+    """Raise unless the partition launched once for each CUDA grouping
+    this process ran since the counter was installed."""
+    _bank_partition_counts()
+    if PARTITION_BANKED["launches"] != GROUPINGS["calls"]:
+        raise AssertionError(
+            f"dest_partition launched {PARTITION_BANKED['launches']} times "
+            f"after its phase; {GROUPINGS['calls']} CUDA groupings ran")
 
 
 def _bank_gather_counts() -> None:
@@ -1402,26 +1532,31 @@ def phase_bench(table: dict) -> dict:
 
 
 def _launches(path: str, fn, kernel: str = NATIVE):
-    """``fn()`` with both transport kernels', the row gather's and the
-    merge's launch counts set to 0 just before it and read just after;
-    raises if the path never launched ``kernel`` (``impl="auto"`` on the
-    card is the ragged kernel), launched the other one, launched the row
-    gather other than its CUDA ``take_rows`` calls asked (the gather runs
-    beside either transport), or the merge other than once for each of
-    its CUDA range steps. The path's gather and merge launches go to
-    ``GATHER_OF_PATH`` and ``MERGE_OF_PATH``. Returns ``(fn(),
-    launches, launches per shape)``."""
+    """``fn()`` with both transport kernels', the row gather's, the
+    merge's and the partition's launch counts set to 0 just before it and
+    read just after; raises if the path never launched ``kernel``
+    (``impl="auto"`` on the card is the ragged kernel), launched the other
+    one, launched the row gather other than its CUDA ``take_rows`` calls
+    asked (the gather runs beside either transport), the merge other than
+    once for each of its CUDA range steps, or the partition other than
+    once for each of its CUDA groupings. The path's gather, merge and
+    partition launches go to ``GATHER_OF_PATH``, ``MERGE_OF_PATH`` and
+    ``PARTITION_OF_PATH``. Returns ``(fn(), launches, launches per
+    shape)``."""
     for mod in COUNTERS.values():
         mod.LAUNCHES = 0
         mod.SHAPES.clear()
     _bank_gather_counts()
     _bank_merge_counts()
+    _bank_partition_counts()
     asked = TAKE_ROWS["launches"]
     steps = RANGE_STEPS["calls"]
+    groupings = GROUPINGS["calls"]
     out = fn()
     torch.cuda.synchronize()
     asked = TAKE_ROWS["launches"] - asked
     steps = RANGE_STEPS["calls"] - steps
+    groupings = GROUPINGS["calls"] - groupings
     if row_gather.LAUNCHES != asked:
         raise AssertionError(
             f"the {path} path launched row_gather {row_gather.LAUNCHES} "
@@ -1430,8 +1565,14 @@ def _launches(path: str, fn, kernel: str = NATIVE):
         raise AssertionError(
             f"the {path} path launched run_merge {run_merge.LAUNCHES} "
             f"times; it ran {steps} CUDA range steps")
+    if dest_partition.LAUNCHES != groupings:
+        raise AssertionError(
+            f"the {path} path launched dest_partition "
+            f"{dest_partition.LAUNCHES} times; it ran {groupings} CUDA "
+            f"groupings")
     GATHER_OF_PATH[path] = row_gather.LAUNCHES
     MERGE_OF_PATH[path] = run_merge.LAUNCHES
+    PARTITION_OF_PATH[path] = dest_partition.LAUNCHES
     launched = {name: mod.LAUNCHES for name, mod in COUNTERS.items()}
     if launched[kernel] == 0:
         raise AssertionError(f"the {path} path never launched {kernel}")
@@ -2737,6 +2878,7 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
                              local_device_count=MH_LOCAL_SHARDS,
                              platform="cuda")
     _count_take_rows()
+    _count_groupings()
     _count_range_steps()
     mesh = multihost.global_mesh("shuffle")
     dl, g = mesh.local_shards, mesh.num_shards
@@ -2883,6 +3025,7 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
         _peer_shape_check(mesh, shape, 50 + i)
         for i, shape in enumerate(sorted(shapes_seen[RING]))]
     _check_merge_launches()
+    _check_partition_launches()
     report["ipc"] = dict(ring_exchange.PEER)
     report["wall_s"] = time.perf_counter() - t_start
     multihost.shutdown_multihost()
@@ -3434,6 +3577,7 @@ def lockgraph_worker(out_path: str) -> None:
     if graph is None:
         raise AssertionError("the lock-order shim is not installed")
     _count_take_rows()
+    _count_groupings()
     keys, payload, generate_s = _mesh_records(MS_MAPS * LG_MAP_ROWS)
     t0 = time.perf_counter()
     want = mesh_service.split_by_partition(_mesh_oracle(keys, payload),
@@ -3523,9 +3667,11 @@ def main() -> None:
     phase_build()
     cfg = TeraSortConfig(rows_per_device=DATA_BYTES // 100 // SHARDS)
     _count_take_rows()
+    _count_groupings()
     table = {RING: phase_kernel(cfg), NATIVE: phase_kernel_native(cfg)}
     gather_row = phase_kernel_gather()
     merge_row = phase_kernel_merge()
+    partition_row = phase_kernel_partition()
     _count_range_steps()
     launches = phase_main_path(cfg, table)
     launches.update(phase_streamed(cfg, table))
@@ -3587,6 +3733,15 @@ def main() -> None:
     merge_row["launches"] = sum(mine.values())
     merge_row["launches_by_path"] = mine
     table[MERGE] = merge_row
+    _check_partition_launches()
+    for path in GROUPING_PATHS:
+        if not PARTITION_OF_PATH[path]:
+            raise AssertionError(f"the {path} path never launched "
+                                 f"dest_partition")
+    mine = {path: n for path, n in PARTITION_OF_PATH.items() if n}
+    partition_row["launches"] = sum(mine.values())
+    partition_row["launches_by_path"] = mine
+    table["dest_partition"] = partition_row
     emit({"kernels": list(table.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_TIMEOUT_S = 600
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -100,3 +101,22 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def bind(name: str, signatures: Mapping[str, Tuple[Sequence, object]],
+         check: Optional[Callable[[ctypes.CDLL], None]] = None
+         ) -> ctypes.CDLL:
+    """``load(name)`` with each function named in ``signatures`` (``{name:
+    (argtypes, restype)}``, a wrapper's copy of the source's ``extern "C"``
+    declarations) given its types, once; ``check(lib)``, if given, runs
+    then and raises where the library and its wrapper disagree."""
+    lib = _bound.get(name)
+    if lib is None:
+        lib = load(name)
+        for fn_name, (argtypes, restype) in signatures.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = list(argtypes), restype
+        if check is not None:
+            check(lib)
+        _bound[name] = lib
+    return lib

@@ -41,6 +41,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from sparkrdma_tpu_torch.ops._build import bind
+
 LAUNCHES = 0
 SHAPES: Dict[Tuple[int, ...], int] = {}
 PEER = {"arena_growths": 0, "ipc_opens": 0, "ipc_open_s": 0.0}
@@ -87,7 +89,6 @@ class _Bases(ctypes.Structure):
                 ("dst", ctypes.c_longlong * MAX_SHARDS)]
 
 
-_lib: Optional[ctypes.CDLL] = None
 _per_thread = threading.local()
 
 
@@ -120,21 +121,15 @@ def _pointer_table(blocks: torch.Tensor, out: torch.Tensor
             [dst0 + i * shard_bytes for i in range(d)])
 
 
+def _check_library(lib: ctypes.CDLL) -> None:
+    if lib.ring_all_to_all_max_shards() != MAX_SHARDS:
+        raise RuntimeError("csrc/ring_exchange.cu and ring_exchange.py "
+                           "disagree on MAX_SHARDS")
+
+
 def _library() -> ctypes.CDLL:
     """The kernel's library, built and bound on first use."""
-    global _lib
-    if _lib is None:
-        from sparkrdma_tpu_torch.ops._build import load
-
-        lib = load(_KERNEL)
-        for name, (argtypes, restype) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = list(argtypes), restype
-        if lib.ring_all_to_all_max_shards() != MAX_SHARDS:
-            raise RuntimeError("csrc/ring_exchange.cu and ring_exchange.py "
-                               "disagree on MAX_SHARDS")
-        _lib = lib
-    return _lib
+    return bind(_KERNEL, SIGNATURES, _check_library)
 
 
 def _fill_bases(src: Sequence[int], dst: Sequence[int]) -> _Bases:
@@ -245,7 +240,8 @@ class _DeviceBuffer:
 
     def __init__(self, nbytes: int):
         ptr = ctypes.c_void_p()
-        _check(_library().ring_ipc_alloc(nbytes, ctypes.byref(ptr)),
+        self._lib = _library()  # held, so __del__ never looks it up
+        _check(self._lib.ring_ipc_alloc(nbytes, ctypes.byref(ptr)),
                f"cudaMalloc of a {nbytes}-byte receive arena")
         self.ptr = int(ptr.value)
         self.__cuda_array_interface__ = {
@@ -253,8 +249,7 @@ class _DeviceBuffer:
             "data": (self.ptr, False), "version": 2}
 
     def __del__(self):
-        if _lib is not None:
-            _lib.ring_ipc_free(ctypes.c_void_p(self.ptr))
+        self._lib.ring_ipc_free(ctypes.c_void_p(self.ptr))
 
 
 class PeerArena:

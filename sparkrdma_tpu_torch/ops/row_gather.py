@@ -20,9 +20,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import torch
+
+from sparkrdma_tpu_torch.ops._build import bind
 
 LAUNCHES = 0
 SHAPES: Dict[Tuple[int, int], int] = {}
@@ -39,9 +41,6 @@ SIGNATURES = {
         ctypes.c_int),
     "row_gather_error_string": ((ctypes.c_int,), ctypes.c_char_p),
 }
-
-_lib: Optional[ctypes.CDLL] = None
-
 
 def row_gather_plain(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch: each shard's indices
@@ -81,16 +80,7 @@ def pieces(d: int, k: int, limit: int = MAX_ROWS
 
 def _library() -> ctypes.CDLL:
     """The kernel's library, built and bound on first use."""
-    global _lib
-    if _lib is None:
-        from sparkrdma_tpu_torch.ops._build import load
-
-        lib = load(_KERNEL)
-        for name, (argtypes, restype) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = list(argtypes), restype
-        _lib = lib
-    return _lib
+    return bind(_KERNEL, SIGNATURES)
 
 
 def _check(rows: torch.Tensor, idx: torch.Tensor) -> None:

@@ -27,10 +27,10 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
 
 import torch
 
+from sparkrdma_tpu_torch.ops._build import bind
 from sparkrdma_tpu_torch.ops.row_gather import vector_bytes
 from sparkrdma_tpu_torch.ops.sort import sort_received
 
@@ -50,21 +50,9 @@ SIGNATURES = {
     "run_merge_error_string": ((ctypes.c_int,), ctypes.c_char_p),
 }
 
-_lib: Optional[ctypes.CDLL] = None
-
-
 def _library() -> ctypes.CDLL:
     """The kernel's library, built and bound on first use."""
-    global _lib
-    if _lib is None:
-        from sparkrdma_tpu_torch.ops._build import load
-
-        lib = load(_KERNEL)
-        for name, (argtypes, restype) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = list(argtypes), restype
-        _lib = lib
-    return _lib
+    return bind(_KERNEL, SIGNATURES)
 
 
 def _check(received: torch.Tensor, recv_counts: torch.Tensor) -> None:

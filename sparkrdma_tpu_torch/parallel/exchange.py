@@ -63,6 +63,7 @@ import torch
 
 import torch.distributed as dist
 
+from sparkrdma_tpu_torch.ops.dest_partition import dest_partition
 from sparkrdma_tpu_torch.ops.ragged_exchange import (
     ragged_all_to_all,
     ragged_all_to_all_peers,
@@ -509,24 +510,28 @@ def group_by_destination(data: torch.Tensor, dest: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stable per-shard grouping of rows by destination partition.
 
-    ``data [D, cap, ...]``, ``dest [D, cap]``; rows with ``dest < 0`` or
-    ``dest >= num_partitions`` are padding: they sort to the end and
-    don't count. Returns ``(grouped_rows, counts int32[D,
+    ``data [D, cap, ...]``, ``dest [D, cap]`` (int32 or int64); rows with
+    ``dest < 0`` or ``dest >= num_partitions`` are padding: they go to
+    the end and don't count. Returns ``(grouped_rows, counts int32[D,
     num_partitions])``.
 
-    The counts come from the sorted destinations (one binary search per
-    partition boundary), not from atomic adds: a scatter-add of every
-    row into D+1 counters serialises on those few addresses."""
+    The order comes from a counting partition of the destinations
+    (``ops/dest_partition.py``), not from a sort, and the row gather
+    follows it. The counts are copied out of the partition's totals after
+    the gather, so the ``exchange.group`` span closes on a kernel of its
+    own and its device range covers the gather. While profiled,
+    ``exchange.group_bytes`` counts the bytes the grouping must move:
+    each destination read and each index written, then the gather's
+    (as ``gather.bytes`` counts them)."""
     with trace_mod.span("exchange.group"):
-        dest = dest.to(torch.int64)
-        dest = torch.where((dest < 0) | (dest >= num_partitions),
-                           num_partitions, dest)
-        sorted_dest, order = torch.sort(dest, dim=1, stable=True)
+        order, totals = dest_partition(dest, num_partitions)
         grouped = take_rows(data, order)
-        bounds = torch.arange(num_partitions + 1, device=dest.device)
-        edges = torch.searchsorted(
-            sorted_dest, bounds.expand(dest.shape[0], -1).contiguous())
-        return grouped, torch.diff(edges, dim=1).to(torch.int32)
+        counts = totals[:, :num_partitions].clone()
+    if trace_mod.counting():
+        row_bytes = math.prod(data.shape[2:]) * data.element_size()
+        trace_mod.count("exchange.group_bytes", order.numel() * (
+            dest.element_size() + 8 + 2 * row_bytes + 8))
+    return grouped, counts
 
 
 def shuffle_shard(data: torch.Tensor, dest: torch.Tensor,

@@ -15,6 +15,7 @@ import pytest
 import torch
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+import grouping_inputs
 from sparkrdma_tpu.parallel import exchange as jx
 from sparkrdma_tpu.utils.compat import shard_map
 from sparkrdma_tpu_torch.parallel import exchange as tx
@@ -180,6 +181,24 @@ def test_group_by_destination_matches_jax():
                                        jnp.asarray(dest[d]), D)
         np.testing.assert_array_equal(grouped[d].numpy(), np.asarray(g))
         np.testing.assert_array_equal(counts[d].numpy(), np.asarray(c))
+
+
+@pytest.mark.parametrize("case", sorted(grouping_inputs.CASES))
+def test_group_by_destination_matches_jax_over_many_tiles(case):
+    """Both packages' groupings and ``grouping_inputs.grouping`` (what
+    ``test_torch_dest_partition.py`` holds the kernel to on the card) on
+    the same arrays of several partition tiles a shard, with pads."""
+    data, dest, p = grouping_inputs.inputs(case)
+    want_grouped, want_counts = grouping_inputs.grouping(data, dest, p)
+    grouped, counts = tx.group_by_destination(torch.from_numpy(data),
+                                              torch.from_numpy(dest), p)
+    for d in range(len(data)):
+        g, c = jx.group_by_destination(jnp.asarray(data[d]),
+                                       jnp.asarray(dest[d]), p)
+        np.testing.assert_array_equal(np.asarray(g), want_grouped[d])
+        np.testing.assert_array_equal(np.asarray(c), want_counts[d])
+        np.testing.assert_array_equal(grouped[d].numpy(), want_grouped[d])
+        np.testing.assert_array_equal(counts[d].numpy(), want_counts[d])
 
 
 def test_resolve_impl():

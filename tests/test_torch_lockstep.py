@@ -48,6 +48,7 @@ PORTED = (
     "ops/__init__.py",
     "ops/_build.py",
     "ops/aggregate.py",
+    "ops/dest_partition.py",
     "ops/partition.py",
     "ops/ragged_exchange.py",
     "ops/ring_exchange.py",

@@ -307,6 +307,34 @@ def test_the_transport_counter_is_the_jobs_exchange_bytes(kind, impl,
     assert got["gather.bytes"] > 0
 
 
+@pytest.mark.parametrize("impl", ["native", "gather"])
+def test_the_group_counter_is_the_bytes_of_its_groupings(impl, monkeypatch):
+    """Each grouping counts its partition (each destination read, each
+    index written) and its row gather (as ``gather.bytes`` counts it),
+    from shapes: a q95 job's groupings add up their shapes' bytes, and
+    their gathers are part of the job's ``gather.bytes``."""
+    groupings = []
+    inner = exchange.group_by_destination
+
+    def recorded(data, dest, num_partitions):
+        row_bytes = math.prod(data.shape[2:]) * data.element_size()
+        groupings.append((dest.numel(), dest.element_size(), row_bytes))
+        return inner(data, dest, num_partitions)
+
+    monkeypatch.setattr(exchange, "group_by_destination", recorded)
+    cfg, run = _job("q95", impl, monkeypatch)
+    _fresh()
+    with _profile():
+        run()
+    got = trace.counts()
+    assert len(groupings) == 8
+    assert got["exchange.group_bytes"] == sum(
+        n * (dest_bytes + 8) + n * (2 * row_bytes + 8)
+        for n, dest_bytes, row_bytes in groupings)
+    gathers = sum(n * (2 * row_bytes + 8) for n, _, row_bytes in groupings)
+    assert 0 < gathers < got["gather.bytes"]
+
+
 def test_the_transport_counter_adds_on_the_device_with_no_sync():
     data = torch.zeros((3, 5, 2), dtype=torch.int32)
     mat = torch.tensor([[1, 2, 0], [0, 0, 5], [1, 1, 1]], dtype=torch.int32)
@@ -329,7 +357,8 @@ SPANS = {"mesh.take_rows": 8000.0, "exchange.receive_fill": 600.0,
          "exchange.group": 3000.0, "q95.aggregate.sort": 4200.0,
          "fused.receive_sort": 9000.0}
 COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB,
-          "fused.merge_bytes": 2 * 9.6 * GB}
+          "fused.merge_bytes": 2 * 9.6 * GB,
+          "exchange.group_bytes": 2 * 6.1 * GB}
 
 
 @pytest.mark.parametrize("metric,want", [
@@ -344,6 +373,8 @@ COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB,
     # 9.6 GB at 3.35 TB/s over 4.5 ms
     ("device_plane.receive_merge_roofline",
      100 * 9.6 * GB / 3.35e12 / 4.5e-3),
+    # 6.1 GB at 3.35 TB/s over 1.5 ms
+    ("exchange.group_roofline", 100 * 6.1 * GB / 3.35e12 / 1.5e-3),
 ])
 def test_a_reader_on_a_synthetic_summary(metric, want, monkeypatch):
     reader = harness.load_readers()[metric]
