@@ -150,6 +150,7 @@ HUNKS = {
         '    "q64.catalog_group",\n'
         '    "q64.catalog_join",\n'
         '    "q64.date_join",\n'
+        '    "q64.pair_lookup",\n'
         '    "q64.store_join",\n'
         '    "q95.addr",\n'
         '    "q95.aggregate",\n'

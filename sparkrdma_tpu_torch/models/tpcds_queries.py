@@ -27,11 +27,18 @@ as data-dependent row counts. The steps return the JAX package's
 per-shard partials (each order, and each item, is owned by exactly one
 shard), which the runners sum on the host.
 
-Key-space convention: item/order/ticket keys fit 16 bits so an exact
-(item, order) pair key fits one u32 (pairkey = item << 16 | order);
-``PAD = 0xFFFFFFFF`` marks dead rows. Arithmetic is the JAX package's:
-u32 values as zero-extended int64 (``utils.u32``), int32 sums summed in
-int64 and wrapped to int32, which is the same modulo 2**32.
+Key-space convention: keys are u32 words and ``PAD = 0xFFFFFFFF`` marks
+dead rows. q95's orders fit 16 bits (``generate_q95``). q64's (item,
+ticket) and (item, order) pairs are exact: item keys lie below 2**31 - 1
+and tickets and orders anywhere in u32, and a pair is the int64 composite
+``item << 32 | key`` (``_pair64``), which the pair joins sort and look up
+on; a dead row's composite is ``SENTINEL64``, beyond every pair. The pair
+joins route a row by ``_pairkey``, the JAX package's u32 pair key ``item
+<< 16 + key`` mod 2**32: exact below 2**16, so every row routes as the
+JAX step routes it there, and above it a hash of the pair that both sides
+compute alike. Arithmetic is the JAX package's: u32 values as
+zero-extended int64 (``utils.u32``), int32 sums summed in int64 and
+wrapped to int32, which is the same modulo 2**32.
 
 Per-segment reductions (the JAX ``segment_min/max/sum`` over key-sorted
 rows) come from the sorted layout itself: a segment's sum is a difference
@@ -64,18 +71,36 @@ from sparkrdma_tpu_torch.parallel.exchange import (
 )
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 from sparkrdma_tpu_torch.utils import trace as trace_mod
-from sparkrdma_tpu_torch.utils.u32 import MASK, SENTINEL, to_bits, to_u64
+from sparkrdma_tpu_torch.utils.u32 import (
+    MASK,
+    SENTINEL,
+    SENTINEL64,
+    to_bits,
+    to_u64,
+)
 
 PAD = np.uint32(0xFFFFFFFF)
-_KEY_BITS = 16  # item/order/ticket key spaces (see module docstring)
+_KEY_BITS = 16  # q95's order key space, and q64's route key (module docstring)
+_ITEM_LIMIT = (1 << 31) - 1  # q64's item keys lie below it
 
 
 def _pairkey(a, b):
-    """Exact u32 composite of two 16-bit keys: numpy u32 arrays or
-    zero-extended int64 tensors."""
+    """The u32 route key of (item, key) pairs, ``a << 16 + b`` mod
+    2**32: numpy u32 arrays or zero-extended int64 tensors. Exact for
+    16-bit keys (the JAX package's pair key), a hash of the pair past
+    them."""
     if isinstance(a, torch.Tensor):
         return (a * (1 << _KEY_BITS) + b) & MASK
     return a * np.uint32(1 << _KEY_BITS) + b
+
+
+def _pair64(rows: torch.Tensor) -> torch.Tensor:
+    """The exact int64 pair ``item << 32 | key`` of rows whose first two
+    u32 words are an item and a ticket or order; ``SENTINEL64`` for a row
+    whose item word is not an item key (``PAD``: a dead row)."""
+    item = to_u64(rows[..., 0])
+    return torch.where(item < _ITEM_LIMIT,
+                       (item << 32) | to_u64(rows[..., 1]), SENTINEL64)
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -356,7 +381,7 @@ def run_q95(mesh: VirtualMesh, cfg: Q95Config, seed: int = 0,
 class Q64Config:
     ss_rows_per_device: int
     cs_rows_per_device: int
-    num_items: int             # < 2**16
+    num_items: int             # < 2**31 - 1: the pair key's high word
     num_dates: int = 365
     first_year_mod: int = 0    # dates with (date % 3) == mod are year Y
     sr_fraction: float = 0.5   # store returns coverage of store sales
@@ -382,12 +407,16 @@ def generate_q64(cfg: Q64Config, num_devices: int, seed: int = 0):
     cs: item, order, price.              cr: item, order, refund.
     date: date_sk, year (0 = Y, 1 = Y+1, 2 = other -> filtered).
     Tickets/orders are globally unique (row index), so (item, key) pairs
-    are unique, the join-on-pair contract of the real tables."""
-    assert cfg.num_items < (1 << _KEY_BITS)
-    rng = np.random.default_rng(seed)
+    are unique, the join-on-pair contract of the real tables. Items lie
+    below ``num_items`` (< 2**31 - 1) and tickets and orders below the
+    row counts (< 2**32); below 2**16 both, the JAX package's limits,
+    the draws are its draws."""
     n_ss = cfg.ss_rows_per_device * num_devices
     n_cs = cfg.cs_rows_per_device * num_devices
-    assert max(n_ss, n_cs) < (1 << _KEY_BITS)
+    if cfg.num_items >= _ITEM_LIMIT or max(n_ss, n_cs) > (1 << 32):
+        raise ValueError(f"q64 keys past their words: {cfg.num_items} "
+                         f"items, {n_ss} store and {n_cs} catalog rows")
+    rng = np.random.default_rng(seed)
     ss = np.stack([
         _zipf_items(rng, cfg.num_items, n_ss, cfg.zipf_a),
         np.arange(n_ss, dtype=np.uint32),
@@ -470,28 +499,30 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
 
     ``step(ss, sr, cs, cr, date)`` takes ``int32[D, rows, W]`` u32 words
     and returns per-shard partials ``(int32[D, 2], overflowed bool[D])``.
+    The pair joins carry each pair as the rows' first two words (item
+    high, key low), route by ``_pairkey`` and look up on ``_pair64``.
     """
     n = mesh.num_shards
     impl = resolve_transport(mesh, impl)
     cap_ss = cfg.ss_rows_per_device * cfg.out_factor
     cap_cs = cfg.cs_rows_per_device * cfg.out_factor
 
-    def with_pairkey(t):
-        pk = _pairkey(to_u64(t[..., 0]), to_u64(t[..., 1]))
-        return torch.cat([t, to_bits(pk)[..., None]], dim=2), pk
+    def by_pair(t):
+        return _route(_pairkey(to_u64(t[..., 0]), to_u64(t[..., 1])),
+                      _all(t), n)
+
+    def pair_lookup(dim, dim_valid, dim_attr, rows, valid):
+        with trace_mod.span("q64.pair_lookup"):
+            return lookup_unique(
+                _pair64(dim), dim_valid, dim_attr,
+                torch.where(valid, _pair64(rows), SENTINEL64))
 
     def step(ss, sr, cs, cr, date):
         with trace_mod.span("q64.catalog_join"):
             # round 1: catalog pair join
-            cs_rows, cs_pk = with_pairkey(cs)
-            cs_r, cs_v, o1 = shuffle_into(
-                cs_rows, _route(cs_pk, _all(cs), n), cap_cs, impl)
-            cr_rows, cr_pk = with_pairkey(cr)
-            cr_r, cr_v, o2 = shuffle_into(
-                cr_rows, _route(cr_pk, _all(cr), n), cap_cs, impl)
-            refund, found = lookup_unique(
-                cr_r[..., 3], cr_v, cr_r[..., 2],
-                torch.where(cs_v, to_u64(cs_r[..., 3]), SENTINEL))
+            cs_r, cs_v, o1 = shuffle_into(cs, by_pair(cs), cap_cs, impl)
+            cr_r, cr_v, o2 = shuffle_into(cr, by_pair(cr), cap_cs, impl)
+            refund, found = pair_lookup(cr_r, cr_v, cr_r[..., 2], cs_r, cs_v)
             refund = torch.where(found, refund, 0)
         with trace_mod.span("q64.catalog_group"):
             # round 2: group catalog by item -> cs_ui
@@ -511,23 +542,16 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
             ui_item = torch.where(seg.first & ui_flag & live, ik_s, SENTINEL)
         with trace_mod.span("q64.store_join"):
             # round 3: store pair join (inner)
-            ss_rows, ss_pk = with_pairkey(ss)
-            ss_r, ss_v, o4 = shuffle_into(
-                ss_rows, _route(ss_pk, _all(ss), n), cap_ss, impl)
-            sr_rows, sr_pk = with_pairkey(sr)
-            sr_r, sr_v, o5 = shuffle_into(
-                sr_rows, _route(sr_pk, _all(sr), n), cap_ss, impl)
-            _, ret_found = lookup_unique(
-                sr_r[..., 2], sr_v, sr_r[..., 2],
-                torch.where(ss_v, to_u64(ss_r[..., 4]), SENTINEL))
+            ss_r, ss_v, o4 = shuffle_into(ss, by_pair(ss), cap_ss, impl)
+            sr_r, sr_v, o5 = shuffle_into(sr, by_pair(sr), cap_ss, impl)
+            _, ret_found = pair_lookup(sr_r, sr_v, sr_r[..., 1], ss_r, ss_v)
             surv_v = ss_v & ret_found
         with trace_mod.span("q64.date_join"):
             # round 4: date join on survivors
             d_r, d_v, o6 = shuffle_into(
                 date, _route(date[..., 0], _all(date), n),
                 _dim_cap(date.shape[1], n), impl)
-            s2, s2_v, o7 = shuffle_into(ss_r[..., :4].contiguous(),
-                                        _route(ss_r[..., 2], surv_v, n),
+            s2, s2_v, o7 = shuffle_into(ss_r, _route(ss_r[..., 2], surv_v, n),
                                         cap_ss, impl)
             year, y_found = lookup_unique(
                 d_r[..., 0], d_v, d_r[..., 1],
@@ -720,8 +744,7 @@ def build_q64_job(cfg: Q64Config, num_maps: int, num_partitions: int,
         return _engine_dep(num_partitions, width)
 
     def pair_u64(rows):
-        return (rows[:, 0].astype(np.uint64) << _KEY_BITS) | \
-            rows[:, 1].astype(np.uint64)
+        return _np_pair(rows[:, 0], rows[:, 1])
 
     def col0_u64(rows):
         return rows[:, 0].astype(np.uint64)

@@ -13,7 +13,8 @@ sort and q95's aggregate sort call; ``sort_live_rows``, that sort with
 pad rows sent last and key 0 written back, for the one-shard step and
 ``sort_received``, the ``dest`` step's sort of received rows and the
 plain version ``ops/run_merge.py``'s merge kernel is held to; and
-``lookup_unique``, the sorted unique-key join of the query plans.
+``lookup_unique``, the sorted unique-key join of the query plans, on
+u32 words or on 64-bit composite keys.
 
 Sorts are stable (ties keep their input order). ``lax.sort`` in the JAX
 package makes no promise about the order of ties, so the two agree
@@ -27,7 +28,13 @@ from typing import Optional, Tuple
 import torch
 
 from sparkrdma_tpu_torch.parallel.mesh import take_rows
-from sparkrdma_tpu_torch.utils.u32 import SENTINEL, from_u64, to_bits, to_u64
+from sparkrdma_tpu_torch.utils.u32 import (
+    SENTINEL,
+    SENTINEL64,
+    from_u64,
+    to_bits,
+    to_u64,
+)
 
 
 def sort_kv(keys: torch.Tensor, values: Optional[torch.Tensor] = None,
@@ -126,13 +133,22 @@ def sort_received(received: torch.Tensor, recv_counts: torch.Tensor,
 def lookup_unique(dim_keys: torch.Tensor, dim_valid: torch.Tensor,
                   dim_attr: torch.Tensor, probes: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sorted unique-key lookup per shard: ``dim_keys`` / ``dim_attr``
-    u32 words ``[D, M]`` (rows where ``dim_valid`` is false take no part),
-    ``probes`` zero-extended int64 ``[D, N]``. Returns ``(attr int64,
-    found)`` per probe; a sentinel probe is never found."""
-    dk = torch.where(dim_valid, to_u64(dim_keys), SENTINEL)
+    """Sorted unique-key lookup per shard: ``dim_attr`` u32 words ``[D,
+    M]``, ``dim_keys`` ``[D, M]`` (rows where ``dim_valid`` is false take
+    no part) and ``probes`` int64 ``[D, N]``. Returns ``(attr int64,
+    found)`` per probe; a sentinel probe is never found.
+
+    Two forms, by ``dim_keys``' dtype: int32 u32 words, probed by
+    zero-extended u32 values with ``SENTINEL`` the "no row" probe; or
+    int64 keys taken as they are (q64's 64-bit pair composites, or u32
+    values that are never 0xFFFFFFFF where valid), with ``SENTINEL64``
+    the "no row" probe."""
+    wide = dim_keys.dtype == torch.int64
+    sentinel = SENTINEL64 if wide else SENTINEL
+    dk = torch.where(dim_valid, dim_keys if wide else to_u64(dim_keys),
+                     sentinel)
     ks, order = torch.sort(dk, dim=1, stable=True)
     at = to_u64(dim_attr).gather(1, order)
     idx = torch.clamp(torch.searchsorted(ks, probes), 0, ks.shape[1] - 1)
-    found = (ks.gather(1, idx) == probes) & (probes != SENTINEL)
+    found = (ks.gather(1, idx) == probes) & (probes != sentinel)
     return at.gather(1, idx), found

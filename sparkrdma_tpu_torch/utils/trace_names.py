@@ -76,6 +76,7 @@ SPANS = frozenset({
     "q64.catalog_group",
     "q64.catalog_join",
     "q64.date_join",
+    "q64.pair_lookup",
     "q64.store_join",
     "q95.addr",
     "q95.aggregate",

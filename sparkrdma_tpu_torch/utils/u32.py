@@ -8,7 +8,9 @@ uses one convention everywhere:
 * rows travel as **int32 bit patterns** (the same 4 bytes as the u32);
 * keys are compared as zero-extended **int64** (``to_u64``);
 * the sentinel ``0xFFFFFFFF`` is int64 ``SENTINEL`` in comparisons and
-  the bit pattern ``-1`` when written back into a row (``to_bits``).
+  the bit pattern ``-1`` when written back into a row (``to_bits``);
+* a key of two words (q64's pair keys) is an int64 composite whose
+  "no row" key is ``SENTINEL64``, beyond every composite.
 
 A shuffle system has no weights: its carried state is the row data
 (and the splitters, which are a pure function of D). ``rows_from_numpy``
@@ -29,6 +31,9 @@ import torch
 
 MASK = 0xFFFFFFFF
 SENTINEL = 0xFFFFFFFF  # as a zero-extended int64 key: sorts after every u32
+# the "no row" key of 64-bit composite keys (two u32 words, the high one
+# below 2**31 - 1), where 0xFFFFFFFF is a real key: the int64 maximum
+SENTINEL64 = (1 << 63) - 1
 
 
 def to_u64(words: torch.Tensor) -> torch.Tensor:

@@ -67,7 +67,7 @@ STEP_SPANS = {
     "fused.receive_sort", "join.exchange", "join.merge", "mesh.take_rows",
     "pagerank.contrib", "pagerank.exchange", "pagerank.sum", "q64.by_item",
     "q64.catalog_group", "q64.catalog_join", "q64.date_join",
-    "q64.store_join", "q95.addr", "q95.aggregate", "q95.aggregate.sort",
+    "q64.pair_lookup", "q64.store_join", "q95.addr", "q95.aggregate", "q95.aggregate.sort",
     "q95.by_order", "q95.date", "q95.site", "tpcds.aggregate",
     "tpcds.join1", "tpcds.join2"}
 PORT_SPANS = {"exchange.collect", "exchange.merge", "exchange.stage",

@@ -187,6 +187,45 @@ def test_lookup_unique_matches_jax_lookup():
     assert found.any() and not found[~sentinel].all()
 
 
+def test_lookup_unique_int64_keys_match_a_numpy_lookup():
+    """The int64 form of ``lookup_unique`` (q64's pair composites) against
+    a numpy lookup, shard by shard: keys at and past 2**32 and the u32
+    maximum as a real key, invalid dimension rows, probes that miss, and
+    ``SENTINEL64`` probes, which are never found even where an invalid
+    row's key is the sentinel."""
+    from sparkrdma_tpu_torch.utils.u32 import SENTINEL64
+
+    rng = np.random.default_rng(37)
+    m, n = 48, 160
+    space = np.array([0, 1, U32_MAX, 2**32, 2**32 + 1, 2**40, 2**62,
+                      SENTINEL64 - 1], np.int64)
+    space = np.concatenate([space, rng.integers(0, 2**63 - 1, 200)])
+    dim_keys = np.stack([rng.permutation(space)[:m] for _ in range(D)])
+    dim_valid = rng.random((D, m)) < 0.8
+    dim_keys[:, 0] = SENTINEL64
+    dim_valid[:, 0] = False
+    dim_attr = rng.integers(0, 2**32, size=(D, m), dtype=np.uint64).astype(
+        np.uint32)
+    probes = rng.choice(space, size=(D, n))
+    sentinel = rng.random((D, n)) < 0.1
+    probes[sentinel] = SENTINEL64
+    attr, found = tsort.lookup_unique(
+        torch.from_numpy(dim_keys), torch.from_numpy(dim_valid),
+        _bits(dim_attr), torch.from_numpy(probes))
+    attr, found = attr.numpy(), found.numpy()
+    for d in range(D):
+        table = {int(k): int(a) for k, a, v in zip(
+            dim_keys[d], dim_attr[d], dim_valid[d]) if v}
+        want = [table.get(int(p)) for p in probes[d]]
+        np.testing.assert_array_equal(found[d],
+                                      [w is not None for w in want])
+        np.testing.assert_array_equal(attr[d][found[d]],
+                                      [w for w in want if w is not None])
+    assert not found[sentinel].any()
+    assert found.any() and not found[~sentinel].all()
+    assert found[probes >= 2**32].any()
+
+
 # -- ops/aggregate -----------------------------------------------------------
 
 def _padded_sorted(rng, n_valid, cap, key_space=20):

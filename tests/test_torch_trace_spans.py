@@ -4,7 +4,8 @@ A span opens a ``record_function`` range only while a torch profiler
 records, and a Tracer event only while its tracer is enabled; with
 neither, a step enters the dispatcher for no span. The step paths that
 the benchmark's cells run emit the spans its readers select on (the row
-gather, the grouping, the receive fill, q95's aggregate sort), and count
+gather, the grouping, the receive fill, q95's aggregate sort, q64's
+joins, groupings and pair lookups), and count
 the bytes their gathers and exchanges move. Here on the CPU, at small
 sizes of the cells' own configurations, with the benchmark's readers run
 on synthetic summaries.
@@ -27,6 +28,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from benchmarks import harness  # noqa: E402
+from benchmarks.jobs import q64 as q64_job  # noqa: E402
 from benchmarks.jobs import q95 as q95_job  # noqa: E402
 from benchmarks.jobs import terasort as terasort_job  # noqa: E402
 from sparkrdma_tpu_torch.parallel import device_plane  # noqa: E402
@@ -44,8 +46,13 @@ SMALL = {
         "target_state": 2, "companies": 2, "web_site_rows": 6,
         "ship_span_days": 150, "window_start_day": 35830}),
     "terasort": ("terasort-hibench-large", {"rows_per_device": 1500}),
+    "q64": ("tpcds-sf10-q64", {
+        "store_sales_rows": 4003, "ss_rows_per_device": 501,
+        "store_returns_rows": 399, "catalog_sales_rows": 2001,
+        "cs_rows_per_device": 251, "catalog_returns_rows": 200,
+        "date_dim_rows": 730, "num_dates": 730}),
 }
-JOBS = {"q95": q95_job, "terasort": terasort_job}
+JOBS = {"q95": q95_job, "terasort": terasort_job, "q64": q64_job}
 
 
 def _profile():
@@ -73,6 +80,9 @@ def _job(kind: str, impl: str, monkeypatch):
     if kind == "q95":
         return cfg, lambda: step(inputs["ws"], inputs["wr"], inputs["date"],
                                  inputs["addr"], inputs["site"])
+    if kind == "q64":
+        return cfg, lambda: step(inputs["ss"], inputs["sr"], inputs["cs"],
+                                 inputs["cr"], inputs["date"])
     return cfg, lambda: step(inputs["rows"])
 
 
@@ -84,6 +94,9 @@ def _job(kind: str, impl: str, monkeypatch):
     ("terasort", {"mesh.take_rows", "exchange.receive_fill",
                   "exchange.transport", "fused.local_sort",
                   "fused.receive_sort"}),
+    ("q64", {"mesh.take_rows", "exchange.group", "exchange.receive_fill",
+             "exchange.transport", "q64.catalog_join", "q64.catalog_group",
+             "q64.store_join", "q64.by_item", "q64.pair_lookup"}),
 ])
 def test_a_profiled_step_emits_its_spans(kind, names, monkeypatch):
     _, run = _job(kind, "native", monkeypatch)
@@ -102,16 +115,19 @@ _VIEWS = {"aten::select", "aten::slice", "aten::reshape", "aten::view",
 _READ = {"q95.date", "q95.addr", "q95.site", "q95.by_order", "q95.aggregate",
          "q95.aggregate.sort", "exchange.group", "exchange.receive_fill",
          "exchange.transport", "mesh.take_rows", "fused.local_sort",
-         "fused.receive_sort"}
+         "fused.receive_sort", "q64.catalog_join", "q64.store_join",
+         "q64.catalog_group", "q64.by_item", "q64.pair_lookup"}
+# how many of them each step opens
+_READ_IN = {"q95": 10, "terasort": 5, "q64": 9}
 
 
-@pytest.mark.parametrize("kind", ["q95", "terasort"])
+@pytest.mark.parametrize("kind", ["q95", "terasort", "q64"])
 def test_a_read_span_opens_and_closes_on_its_own_work(kind, monkeypatch):
     """On the card a kernel belongs to the innermost open span, and a span's
     range runs from its first to its last own kernel: each span a reader
     takes device time from starts and ends with an op of its own, so its
-    range covers the spans nested in it (q95's aggregate sort and the
-    sorts' row gathers)."""
+    range covers the spans nested in it (q95's aggregate sort, q64's pair
+    lookups and the sorts' row gathers)."""
     _, run = _job(kind, "native", monkeypatch)
     with _profile() as prof:
         run()
@@ -126,7 +142,7 @@ def test_a_read_span_opens_and_closes_on_its_own_work(kind, monkeypatch):
         assert not ops[0].is_user_annotation, (event.name, ops[0].name)
         assert not ops[-1].is_user_annotation, (event.name, ops[-1].name)
         checked.add(event.name)
-    assert len(checked) == (10 if kind == "q95" else 5)
+    assert len(checked) == _READ_IN[kind]
 
 
 def _count_enters(monkeypatch) -> list:
@@ -355,7 +371,9 @@ def _ctx(spans_us: dict, jobs: int = 2) -> harness.Context:
 GB = 10**9
 SPANS = {"mesh.take_rows": 8000.0, "exchange.receive_fill": 600.0,
          "exchange.group": 3000.0, "q95.aggregate.sort": 4200.0,
-         "fused.receive_sort": 9000.0}
+         "fused.receive_sort": 9000.0, "q64.catalog_join": 1000.0,
+         "q64.store_join": 3000.0, "q64.catalog_group": 500.0,
+         "q64.by_item": 700.0, "q64.pair_lookup": 1800.0}
 COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB,
           "fused.merge_bytes": 2 * 9.6 * GB,
           "exchange.group_bytes": 2 * 6.1 * GB}
@@ -366,6 +384,9 @@ COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB,
     ("exchange.receive_fill_ms", 0.3),
     ("exchange.group_ms", 1.5),
     ("q95.aggregate_sort_ms", 2.1),
+    ("q64.pair_joins_ms", 2.0),
+    ("q64.item_groups_ms", 0.6),
+    ("q64.pair_lookup_ms", 0.9),
     ("gather.gb", 6.0),
     ("exchange.gb", 3.0),
     # 6 GB at 3.35 TB/s over 4 ms
