@@ -61,6 +61,15 @@ printing one JSON line; any failure raises and the exit code is not 0:
    that group (q95, q64, the ``dest`` step, ALS, PageRank, the mesh
    reduce) must have launched it, and the end holds the process's
    launches to all of them;
+   then kernel_lookup: the unique-key lookup ``hash_lookup`` (under the
+   query plans' joins) at q64's SF10 shapes, the store join's two-word
+   pairs and the date join's one-word dates, against its plain version
+   (``found`` exact, ``attr`` exact where found and 0 elsewhere) and what
+   the data must find, one launch a call, timed against the plain
+   version's sort and search; every CUDA ``hash_lookup`` call is counted
+   (in the worker processes too), each counted path's lookup launches are
+   held to its own calls, the star join, q95 and q64 paths must have
+   launched it, and the end holds the process's launches to all calls;
 4. main path: TeraSort of 1 GiB of 100-byte rows over an 8-shard virtual
    mesh with ``impl="auto"`` (the ragged kernel) and again with
    ``impl="ring"`` (BASELINE.md config #1), counting each kernel's
@@ -259,6 +268,7 @@ from sparkrdma_tpu_torch.models.terasort import (
 from sparkrdma_tpu_torch.ops import (
     _build,
     dest_partition,
+    hash_lookup,
     ragged_exchange,
     ring_exchange,
     row_gather,
@@ -349,7 +359,8 @@ PATH_RING_SHAPES = ((8, 8, 131072, 2), (8, 8, 262144, 2), (8, 8, 14746, 2),
                     (8, 8, 25000, 5), (8, 8, 29, 3))
 # csrc/ sources: the ring and ragged kernels are in one, the row gather
 # and the receive merge each in one of their own
-KERNELS = ("ring_exchange", "row_gather", "run_merge", "dest_partition")
+KERNELS = ("ring_exchange", "row_gather", "run_merge", "dest_partition",
+           "hash_lookup")
 RING = "ring_all_to_all"
 NATIVE = "ragged_all_to_all"
 GATHER = "row_gather"
@@ -378,6 +389,15 @@ PARTITION_BANKED = {"launches": 0}
 PARTITION_OF_PATH: dict = {}
 GROUPING_PATHS = ("q95", "q64", "fused_rounds", "chunked/als", "pagerank",
                   "mesh_service/fused_rounds")
+# CUDA hash_lookup calls in this process, counted by the wrapper
+# _count_lookups installs: each launches the lookup once; the lookup's
+# launches of the process, banked from hash_lookup.LAUNCHES each time
+# _launches zeroes it; its launches per counted path, set by _launches;
+# the paths that must have looked up on the card
+LOOKUPS = {"calls": 0}
+LOOKUP_BANKED = {"launches": 0}
+LOOKUP_OF_PATH: dict = {}
+LOOKUP_PATHS = ("tpcds", "q95", "q64")
 # CUDA range steps over more than one shard run in this process, counted
 # by the wrapper _count_range_steps installs: each merges once; the
 # merge's launches of the process, banked from run_merge.LAUNCHES each
@@ -1010,6 +1030,24 @@ def _count_groupings() -> None:
             mod.group_by_destination = counted
 
 
+def _count_lookups() -> None:
+    """Count each CUDA ``hash_lookup`` call in ``LOOKUPS``: every module
+    of the port that holds ``hash_lookup`` (the star join's, the query
+    plans', the op module's own) gets a counting wrapper."""
+    inner = hash_lookup.hash_lookup
+
+    def counted(dim_keys, dim_valid, dim_attr, probe_keys, probe_valid,
+                bound):
+        if probe_keys[0].is_cuda:
+            LOOKUPS["calls"] += 1
+        return inner(dim_keys, dim_valid, dim_attr, probe_keys, probe_valid,
+                     bound)
+    for mod in list(sys.modules.values()):
+        if (getattr(mod, "__name__", "").startswith("sparkrdma_tpu_torch")
+                and getattr(mod, "hash_lookup", None) is inner):
+            mod.hash_lookup = counted
+
+
 def _range_receive(d: int, n: int, w: int, seed: int):
     """The receive buffer and counts that one TeraSort range step over
     rows made on the card hands the merge, and the step's output."""
@@ -1156,6 +1194,151 @@ def phase_kernel_partition() -> dict:
             "library_ms": main["library_ms"], "by_shape": by_shape}
 
 
+def _store_join_sides(d: int, n: int, live_dim: int, live_probe: int):
+    """q64's store join at SF10 made on the card: sales ``[d, n, 4]``
+    (item, ticket and two words; the first ``live_probe`` rows a shard
+    live, the rest dead with the PAD item) and returns ``[d, n, 2]``, the
+    first ``live_dim`` rows a shard the pairs of as many distinct sales
+    (drawn without replacement, so every return finds its sale), and
+    both valid masks."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    ss = torch.zeros((d, n, 4), dtype=torch.int32, device="cuda")
+    ss[:, :live_probe] = torch.randint(-2**31, 2**31 - 1, (d, live_probe, 4),
+                                       dtype=torch.int32, device="cuda",
+                                       generator=gen)
+    ss[:, :live_probe, 0] = torch.randint(0, 102_000, (d, live_probe),
+                                          dtype=torch.int32, device="cuda",
+                                          generator=gen)
+    ss[:, live_probe:, 0] = -1
+    pick = torch.stack([torch.randperm(live_probe, device="cuda",
+                                       generator=gen)[:live_dim]
+                        for _ in range(d)])
+    sr = torch.zeros((d, n, 2), dtype=torch.int32, device="cuda")
+    sr[:, :live_dim] = ss[:, :, :2].gather(1, pick[..., None].expand(-1, -1,
+                                                                      2))
+    pos = torch.arange(n, device="cuda")
+    return (ss, sr, (pos < live_probe).expand(d, n).contiguous(),
+            (pos < live_dim).expand(d, n).contiguous())
+
+
+def _date_join_sides(d: int, m: int, live_dim: int, n: int,
+                     live_probe: int):
+    """q64's date join at SF10 made on the card, the one-word form: the
+    date table ``[d, m, 2]`` (date key, year word) whose first
+    ``live_dim`` rows a shard are distinct dates of that shard, and the
+    survivors ``[d, n, 4]`` whose first ``live_probe`` rows a shard carry
+    a date key in word 2: a date of their own shard, or, every eighth
+    row, one of the next shard's (a miss). Returns both buffers, both
+    valid masks and the probes that must be found."""
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    dates = (2_415_022 + torch.randperm(d * live_dim, device="cuda",
+                                        generator=gen)).view(d, live_dim)
+    dim = torch.zeros((d, m, 2), dtype=torch.int32, device="cuda")
+    dim[:, :live_dim, 0] = dates.to(torch.int32)
+    dim[:, :live_dim, 1] = torch.randint(0, 200, (d, live_dim),
+                                         dtype=torch.int32, device="cuda",
+                                         generator=gen)
+    pick = torch.randint(0, live_dim, (d, live_probe), device="cuda",
+                         generator=gen)
+    miss = (torch.arange(live_probe, device="cuda") % 8 == 7).expand(
+        d, live_probe)
+    keys = torch.where(miss, dates.roll(-1, 0).gather(1, pick),
+                       dates.gather(1, pick))
+    probe = torch.zeros((d, n, 4), dtype=torch.int32, device="cuda")
+    probe[:, :live_probe, 2] = keys.to(torch.int32)
+    pos_m = torch.arange(m, device="cuda")
+    pos_n = torch.arange(n, device="cuda")
+    want = torch.zeros((d, n), dtype=torch.bool, device="cuda")
+    want[:, :live_probe] = ~miss
+    return (dim, probe, (pos_m < live_dim).expand(d, m).contiguous(),
+            (pos_n < live_probe).expand(d, n).contiguous(), want)
+
+
+def phase_kernel_lookup() -> dict:
+    """The unique-key lookup at q64's SF10 shapes, in both of its forms.
+    Two words: the store join, [8, 14,400,496] receive slots a side,
+    359,429 live returns a shard (each a distinct sale's pair) against
+    3,600,124 live sales, with the refund-like attribute and without (the
+    store join's form). One word: the date join, 9,132 live dates a
+    shard in [8, 73,056] slots against 359,429 live survivors in
+    [8, 14,400,496], with the year. Held to its plain version (``found``
+    exact, ``attr`` exact where found and 0 elsewhere) and to what the
+    data must give (every return's sale found; exactly the survivors of
+    a date of their own shard), one launch a call, and timed against the
+    bytes each row must move at the card's memory rate (every valid byte
+    read, each live row's key words, each probe's found byte and
+    attribute word written) and the plain version (the int64 keys, their
+    stable sort and the binary search: what the port ran before, and
+    what one PyTorch call chain computes). Returns the kernel's row; the
+    phase's own launches leave ``hash_lookup.LAUNCHES`` as it was."""
+    first = hash_lookup.LAUNCHES
+    d, n, live_dim, live_probe = SHARDS, 14_400_496, 359_429, 3_600_124
+    ss, sr, ss_v, sr_v = _store_join_sides(d, n, live_dim, live_probe)
+    dim, probe, dim_v, probe_v, want_date = _date_join_sides(
+        d, 73_056, 9_132, n, live_dim)
+    # name, args, bound, key words, live rows a side, the found rule
+    cases = [
+        (name, ((sr[..., 0], sr[..., 1]), sr_v, attr_words,
+                (ss[..., 0], ss[..., 1]), ss_v), d * live_dim, 2,
+         (live_dim, live_probe), lambda found: bool(
+             found.sum() >= d * live_dim))
+        for name, attr_words in (("q64.store_join", None),
+                                 ("q64.store_join+attr", sr[..., 1]))]
+    cases.append(("q64.date_join", ((dim[..., 0],), dim_v, dim[..., 1],
+                                    (probe[..., 2],), probe_v),
+                  d * 9_132, 1, (9_132, live_dim),
+                  lambda found: torch.equal(found, want_date)))
+    by_shape = []
+    for name, args, bound, words, (live_d, live_p), rule in cases:
+        before = hash_lookup.LAUNCHES
+        attr, found, over = hash_lookup.hash_lookup(*args, bound)
+        want_attr, want_found = hash_lookup.hash_lookup_plain(*args)
+        torch.cuda.synchronize()
+        if hash_lookup.LAUNCHES != before + 1:
+            raise AssertionError(f"hash_lookup launched "
+                                 f"{hash_lookup.LAUNCHES - before} times "
+                                 f"at {name}")
+        if bool(over.any()) or not torch.equal(found, want_found):
+            raise AssertionError(f"hash_lookup's found != plain at {name}")
+        if attr is not None and not (
+                torch.equal(attr[found], want_attr[found])
+                and not attr[~found].any()):
+            raise AssertionError(f"hash_lookup's attr != plain at {name}")
+        hits = int(found.sum())
+        if not rule(found):
+            raise AssertionError(f"hash_lookup found {hits} probes at "
+                                 f"{name}, not what its data holds")
+        del want_attr, want_found
+        m, p = args[0][0].shape[1], found.shape[1]
+        moved = (d * m + d * p + 4 * words * d * (live_d + live_p) + d * p
+                 + (0 if attr is None else 8 * d * p + 4 * hits))
+        del attr
+        ms = cuda_ms(lambda: hash_lookup.hash_lookup(*args, bound), 5, 5)
+        entry = {"case": name, "shape": [d, m, p], "words": words,
+                 "live_dim": live_d, "live_probe": live_p, "found": hits,
+                 "bytes_moved": moved, "ms": ms,
+                 "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                 "plain_ms": cuda_ms(
+                     lambda: hash_lookup.hash_lookup_plain(*args), 3, 3),
+                 "max_abs_err": 0}
+        entry["roofline_share"] = entry["bound_ms"] / ms
+        entry["vs_plain"] = entry["plain_ms"] / ms
+        by_shape.append(entry)
+        emit({"phase": "kernel_lookup", **entry})
+        torch.cuda.empty_cache()
+    del ss, sr, ss_v, sr_v, dim, probe, dim_v, probe_v, want_date, cases
+    del args, found, over
+    torch.cuda.empty_cache()
+    hash_lookup.LAUNCHES = first
+    main = by_shape[0]
+    return {"name": "hash_lookup", "route": "cuda",
+            "source": "sparkrdma_tpu_torch/csrc/hash_lookup.cu",
+            "replaces": None, "max_abs_err": 0, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": main["plain_ms"],
+            "by_shape": by_shape}
+
+
 def _count_range_steps() -> None:
     """Count each call of a CUDA ``range`` step over more than one shard
     in ``RANGE_STEPS``: every module of the port that holds
@@ -1210,6 +1393,24 @@ def _check_partition_launches() -> None:
         raise AssertionError(
             f"dest_partition launched {PARTITION_BANKED['launches']} times "
             f"after its phase; {GROUPINGS['calls']} CUDA groupings ran")
+
+
+def _bank_lookup_counts() -> None:
+    """Add ``hash_lookup.LAUNCHES`` to ``LOOKUP_BANKED`` and set it to
+    0."""
+    LOOKUP_BANKED["launches"] += hash_lookup.LAUNCHES
+    hash_lookup.LAUNCHES = 0
+
+
+def _check_lookup_launches() -> None:
+    """Raise unless the lookup launched once for each CUDA
+    ``hash_lookup`` call this process made since the counter was
+    installed."""
+    _bank_lookup_counts()
+    if LOOKUP_BANKED["launches"] != LOOKUPS["calls"]:
+        raise AssertionError(
+            f"hash_lookup launched {LOOKUP_BANKED['launches']} times after "
+            f"its phase; {LOOKUPS['calls']} CUDA lookups were called")
 
 
 def _bank_gather_counts() -> None:
@@ -1533,15 +1734,17 @@ def phase_bench(table: dict) -> dict:
 
 def _launches(path: str, fn, kernel: str = NATIVE):
     """``fn()`` with both transport kernels', the row gather's, the
-    merge's and the partition's launch counts set to 0 just before it and
-    read just after; raises if the path never launched ``kernel``
-    (``impl="auto"`` on the card is the ragged kernel), launched the other
-    one, launched the row gather other than its CUDA ``take_rows`` calls
-    asked (the gather runs beside either transport), the merge other than
-    once for each of its CUDA range steps, or the partition other than
-    once for each of its CUDA groupings. The path's gather, merge and
-    partition launches go to ``GATHER_OF_PATH``, ``MERGE_OF_PATH`` and
-    ``PARTITION_OF_PATH``. Returns ``(fn(), launches, launches per
+    merge's, the partition's and the lookup's launch counts set to 0 just
+    before it and read just after; raises if the path never launched
+    ``kernel`` (``impl="auto"`` on the card is the ragged kernel),
+    launched the other one, launched the row gather other than its CUDA
+    ``take_rows`` calls asked (the gather runs beside either transport),
+    the merge other than once for each of its CUDA range steps, the
+    partition other than once for each of its CUDA groupings, or the
+    lookup other than once for each of its CUDA ``hash_lookup`` calls.
+    The path's gather, merge, partition and lookup launches go to
+    ``GATHER_OF_PATH``, ``MERGE_OF_PATH``, ``PARTITION_OF_PATH`` and
+    ``LOOKUP_OF_PATH``. Returns ``(fn(), launches, launches per
     shape)``."""
     for mod in COUNTERS.values():
         mod.LAUNCHES = 0
@@ -1549,14 +1752,17 @@ def _launches(path: str, fn, kernel: str = NATIVE):
     _bank_gather_counts()
     _bank_merge_counts()
     _bank_partition_counts()
+    _bank_lookup_counts()
     asked = TAKE_ROWS["launches"]
     steps = RANGE_STEPS["calls"]
     groupings = GROUPINGS["calls"]
+    looked = LOOKUPS["calls"]
     out = fn()
     torch.cuda.synchronize()
     asked = TAKE_ROWS["launches"] - asked
     steps = RANGE_STEPS["calls"] - steps
     groupings = GROUPINGS["calls"] - groupings
+    looked = LOOKUPS["calls"] - looked
     if row_gather.LAUNCHES != asked:
         raise AssertionError(
             f"the {path} path launched row_gather {row_gather.LAUNCHES} "
@@ -1570,9 +1776,14 @@ def _launches(path: str, fn, kernel: str = NATIVE):
             f"the {path} path launched dest_partition "
             f"{dest_partition.LAUNCHES} times; it ran {groupings} CUDA "
             f"groupings")
+    if hash_lookup.LAUNCHES != looked:
+        raise AssertionError(
+            f"the {path} path launched hash_lookup {hash_lookup.LAUNCHES} "
+            f"times; it made {looked} CUDA lookups")
     GATHER_OF_PATH[path] = row_gather.LAUNCHES
     MERGE_OF_PATH[path] = run_merge.LAUNCHES
     PARTITION_OF_PATH[path] = dest_partition.LAUNCHES
+    LOOKUP_OF_PATH[path] = hash_lookup.LAUNCHES
     launched = {name: mod.LAUNCHES for name, mod in COUNTERS.items()}
     if launched[kernel] == 0:
         raise AssertionError(f"the {path} path never launched {kernel}")
@@ -2879,6 +3090,7 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
                              platform="cuda")
     _count_take_rows()
     _count_groupings()
+    _count_lookups()
     _count_range_steps()
     mesh = multihost.global_mesh("shuffle")
     dl, g = mesh.local_shards, mesh.num_shards
@@ -3026,6 +3238,7 @@ def multihost_worker(rank: int, port: str, work_dir: str) -> None:
         for i, shape in enumerate(sorted(shapes_seen[RING]))]
     _check_merge_launches()
     _check_partition_launches()
+    _check_lookup_launches()
     report["ipc"] = dict(ring_exchange.PEER)
     report["wall_s"] = time.perf_counter() - t_start
     multihost.shutdown_multihost()
@@ -3578,6 +3791,7 @@ def lockgraph_worker(out_path: str) -> None:
         raise AssertionError("the lock-order shim is not installed")
     _count_take_rows()
     _count_groupings()
+    _count_lookups()
     keys, payload, generate_s = _mesh_records(MS_MAPS * LG_MAP_ROWS)
     t0 = time.perf_counter()
     want = mesh_service.split_by_partition(_mesh_oracle(keys, payload),
@@ -3672,7 +3886,9 @@ def main() -> None:
     gather_row = phase_kernel_gather()
     merge_row = phase_kernel_merge()
     partition_row = phase_kernel_partition()
+    lookup_row = phase_kernel_lookup()
     _count_range_steps()
+    _count_lookups()
     launches = phase_main_path(cfg, table)
     launches.update(phase_streamed(cfg, table))
     launches.update(phase_bench(table))
@@ -3742,6 +3958,15 @@ def main() -> None:
     partition_row["launches"] = sum(mine.values())
     partition_row["launches_by_path"] = mine
     table["dest_partition"] = partition_row
+    _check_lookup_launches()
+    for path in LOOKUP_PATHS:
+        if not LOOKUP_OF_PATH[path]:
+            raise AssertionError(f"the {path} path never launched "
+                                 f"hash_lookup")
+    mine = {path: n for path, n in LOOKUP_OF_PATH.items() if n}
+    lookup_row["launches"] = sum(mine.values())
+    lookup_row["launches_by_path"] = mine
+    table["hash_lookup"] = lookup_row
     emit({"kernels": list(table.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

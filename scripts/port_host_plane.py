@@ -142,6 +142,7 @@ HUNKS = {
         '    "fused.receive_sort",\n'
         '    "join.exchange",\n'
         '    "join.merge",\n'
+        '    "lookup.unique",\n'
         '    "mesh.take_rows",\n'
         '    "pagerank.contrib",\n'
         '    "pagerank.exchange",\n'

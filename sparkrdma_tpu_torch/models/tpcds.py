@@ -10,8 +10,8 @@ every shard (on ``cuda`` each through the ragged all-to-all kernel, the
 ``native`` transport): fact and dim1 by hash(key1), the join-1 survivors
 and dim2 by hash(key2), the joined rows by group owner (``g % D``). Fact
 keys are Zipf-skewed; dimension keys are unique with partial coverage, so
-both joins are selective inner joins done as sorted lookups
-(``ops/sort.py::lookup_unique``; validity masks carry selectivity).
+both joins are selective inner joins done as unique-key lookups
+(``ops/hash_lookup.py::hash_lookup``; validity masks carry selectivity).
 
 Arithmetic is the JAX package's u32 arithmetic: int64 values masked to
 32 bits (``utils.u32``). Per-group sums are int32 there and wrap; the
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from sparkrdma_tpu_torch.ops.partition import hash_partition
-from sparkrdma_tpu_torch.ops.sort import lookup_unique
+from sparkrdma_tpu_torch.ops.hash_lookup import hash_lookup
 from sparkrdma_tpu_torch.parallel.exchange import (
     resolve_transport,
     shuffle_into,
@@ -127,8 +127,9 @@ def make_tpcds_step(mesh: VirtualMesh, cfg: TpcdsConfig, impl: str = "auto"):
                 dim1, route(dim1, 0), dim1.shape[1] * cfg.out_factor, impl)
             f1, f1_valid, of2 = shuffle_into(fact, route(fact, 0), cap, impl)
             key1 = to_u64(f1[..., 0])
-            attr1, found1 = lookup_unique(d1[..., 0], d1_valid, d1[..., 1],
-                                          key1)
+            attr1, found1, of6 = hash_lookup(
+                (d1[..., 0],), d1_valid, d1[..., 1], (f1[..., 0],), f1_valid,
+                dim1.shape[0] * dim1.shape[1])
             live1 = f1_valid & found1
             value1 = ((to_u64(f1[..., 2]) * attr1) & MASK) % _MOD
             # join-1 survivors: (key2, key1, value1), PAD-keyed when dead
@@ -141,8 +142,9 @@ def make_tpcds_step(mesh: VirtualMesh, cfg: TpcdsConfig, impl: str = "auto"):
                 dim2, route(dim2, 0), dim2.shape[1] * cfg.out_factor, impl)
             m2, m2_valid, of4 = shuffle_into(mid, route(mid, 0), cap, impl)
             key2 = to_u64(m2[..., 0])
-            attr2, found2 = lookup_unique(d2[..., 0], d2_valid, d2[..., 1],
-                                          key2)
+            attr2, found2, of7 = hash_lookup(
+                (d2[..., 0],), d2_valid, d2[..., 1], (m2[..., 0],), m2_valid,
+                dim2.shape[0] * dim2.shape[1])
             live2 = m2_valid & found2
             value = ((to_u64(m2[..., 2]) + attr2) & MASK) % _MOD
             group = _mix_group(to_u64(m2[..., 1]), key2, groups)
@@ -167,7 +169,7 @@ def make_tpcds_step(mesh: VirtualMesh, cfg: TpcdsConfig, impl: str = "auto"):
                 live3, to_u64(recv3[..., 1]), 0).reshape(-1))
             counts = counts.reshape(n, groups)
             sums = sums.reshape(n, groups)
-        overflowed = of1 | of2 | of3 | of4 | of5
+        overflowed = of1 | of2 | of3 | of4 | of5 | of6 | of7
         return counts.to(torch.int32), sums.to(torch.int32), overflowed
 
     return step
@@ -181,7 +183,7 @@ def run_tpcds(mesh: VirtualMesh, cfg: TpcdsConfig, seed: int = 0,
     """Host driver: returns the exact global ``(counts int64[G], sums
     int64[G])``. ``star`` is a ``generate_star`` result (made from
     ``seed`` when not given). Raises ``OverflowError`` when a shuffle
-    overflowed its receive headroom."""
+    overflowed its receive headroom or a lookup its bound."""
     n = mesh.num_shards
     fact, dim1, dim2 = (star if star is not None
                         else generate_star(cfg, n, seed))
@@ -191,8 +193,9 @@ def run_tpcds(mesh: VirtualMesh, cfg: TpcdsConfig, seed: int = 0,
         rows_from_numpy(pad_to_devices(dim1, n), mesh),
         rows_from_numpy(pad_to_devices(dim2, n), mesh))
     if overflowed.any().item():
-        raise OverflowError("tpcds shuffle overflowed receive headroom; "
-                            "raise TpcdsConfig.out_factor")
+        raise OverflowError("tpcds: a shuffle overflowed its receive "
+                            "headroom (raise TpcdsConfig.out_factor) or a "
+                            "lookup its bound")
     return (counts.cpu().numpy().sum(axis=0).astype(np.int64),
             sums.cpu().numpy().sum(axis=0).astype(np.int64))
 

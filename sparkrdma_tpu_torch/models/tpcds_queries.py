@@ -30,15 +30,15 @@ shard), which the runners sum on the host.
 Key-space convention: keys are u32 words and ``PAD = 0xFFFFFFFF`` marks
 dead rows. q95's orders fit 16 bits (``generate_q95``). q64's (item,
 ticket) and (item, order) pairs are exact: item keys lie below 2**31 - 1
-and tickets and orders anywhere in u32, and a pair is the int64 composite
-``item << 32 | key`` (``_pair64``), which the pair joins sort and look up
-on; a dead row's composite is ``SENTINEL64``, beyond every pair. The pair
-joins route a row by ``_pairkey``, the JAX package's u32 pair key ``item
-<< 16 + key`` mod 2**32: exact below 2**16, so every row routes as the
-JAX step routes it there, and above it a hash of the pair that both sides
-compute alike. Arithmetic is the JAX package's: u32 values as
-zero-extended int64 (``utils.u32``), int32 sums summed in int64 and
-wrapped to int32, which is the same modulo 2**32.
+and tickets and orders anywhere in u32, and the pair joins look a pair up
+on the rows' first two words (item high, key low; ``ops/hash_lookup.py``,
+where a dead row's PAD item word is no key). They route a row by
+``_pairkey``, the JAX package's u32 pair key ``item << 16 + key`` mod
+2**32: exact below 2**16, so every row routes as the JAX step routes it
+there, and above it a hash of the pair that both sides compute alike.
+Arithmetic is the JAX package's: u32 values as zero-extended int64
+(``utils.u32``), int32 sums summed in int64 and wrapped to int32, which
+is the same modulo 2**32.
 
 Per-segment reductions (the JAX ``segment_min/max/sum`` over key-sorted
 rows) come from the sorted layout itself: a segment's sum is a difference
@@ -47,6 +47,12 @@ segment min != segment max) is a warehouse change inside an order's run
 once rows are sorted by (order, warehouse). No scatter is involved, so a
 hot key (q64's top item holds about a quarter of store sales) costs no
 more than a cold one.
+
+Every unique-key join (the dimension rounds, the semi-joins, the pair
+joins) is ``ops/hash_lookup.py::hash_lookup`` on the received rows' own
+key words, given a bound on the dimension rows from shapes (the rows that
+side sent, or q64's item count); its flag joins the step's
+``overflowed``.
 
 The engine-DAG variants (``build_q95_job``, ``build_q64_job``) express
 the same plans as stage DAGs of numpy tasks for ``engine.DAGEngine``;
@@ -62,8 +68,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.ops.hash_lookup import (
+    HIGH_LIMIT,
+    hash_lookup,
+    low_word,
+)
 from sparkrdma_tpu_torch.ops.partition import hash_partition
-from sparkrdma_tpu_torch.ops.sort import lookup_unique, sort_rows
+from sparkrdma_tpu_torch.ops.sort import sort_rows
 from sparkrdma_tpu_torch.parallel.device_plane import stage_to_device
 from sparkrdma_tpu_torch.parallel.exchange import (
     resolve_transport,
@@ -74,14 +85,13 @@ from sparkrdma_tpu_torch.utils import trace as trace_mod
 from sparkrdma_tpu_torch.utils.u32 import (
     MASK,
     SENTINEL,
-    SENTINEL64,
     to_bits,
     to_u64,
 )
 
 PAD = np.uint32(0xFFFFFFFF)
 _KEY_BITS = 16  # q95's order key space, and q64's route key (module docstring)
-_ITEM_LIMIT = (1 << 31) - 1  # q64's item keys lie below it
+_ITEM_LIMIT = HIGH_LIMIT  # q64's item keys: a pair key's high word lies below
 
 
 def _pairkey(a, b):
@@ -92,15 +102,6 @@ def _pairkey(a, b):
     if isinstance(a, torch.Tensor):
         return (a * (1 << _KEY_BITS) + b) & MASK
     return a * np.uint32(1 << _KEY_BITS) + b
-
-
-def _pair64(rows: torch.Tensor) -> torch.Tensor:
-    """The exact int64 pair ``item << 32 | key`` of rows whose first two
-    u32 words are an item and a ticket or order; ``SENTINEL64`` for a row
-    whose item word is not an item key (``PAD``: a dead row)."""
-    item = to_u64(rows[..., 0])
-    return torch.where(item < _ITEM_LIMIT,
-                       (item << 32) | to_u64(rows[..., 1]), SENTINEL64)
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -120,6 +121,13 @@ def _route(keys, valid, n: int):
 
 def _all(rows):
     return torch.ones(rows.shape[:2], dtype=torch.bool, device=rows.device)
+
+
+def _sent(table: torch.Tensor) -> int:
+    """``D * N`` of a ``[D, N, ...]`` table: the rows it sends when
+    shuffled, a bound on the rows the shards receive from it, and so on a
+    lookup's live dimension rows."""
+    return table.shape[0] * table.shape[1]
 
 
 def _dim_cap(rows_per_shard: int, n: int) -> int:
@@ -294,12 +302,12 @@ def make_q95_step(mesh: VirtualMesh, cfg: Q95Config, impl: str = "auto"):
             _dim_cap(dim.shape[1], n), impl)
         f_recv, f_valid, of_f = shuffle_into(
             rows, _route(rows[..., key_col], valid, n), cap, impl)
-        attr, found = lookup_unique(
-            d_recv[..., 0], d_valid, d_recv[..., 1],
-            torch.where(f_valid, to_u64(f_recv[..., key_col]), SENTINEL))
+        attr, found, of_l = hash_lookup(
+            (d_recv[..., 0],), d_valid, d_recv[..., 1],
+            (f_recv[..., key_col],), f_valid, _sent(dim))
         ok = found & pred(attr)
         f_recv[..., 7] |= torch.where(ok, flag_bit, 0).to(torch.int32)
-        return f_recv, f_valid, of_d | of_f
+        return f_recv, f_valid, of_d | of_f | of_l
 
     def step(ws, wr, date, addr, site):
         # working rows: [order, wh, date, addr, site, cost, profit, flags]
@@ -337,13 +345,14 @@ def make_q95_step(mesh: VirtualMesh, cfg: Q95Config, impl: str = "auto"):
                 [torch.zeros_like(seg.first[:, :1]),
                  r_s[:, 1:, 1] != r_s[:, :-1, 1]], dim=1) & ~seg.first
             multi = seg.sum(wh_change) > 0  # >1 distinct warehouse
-            _, has_ret = lookup_unique(wr_recv[..., 0], wr_valid,
-                                       wr_recv[..., 0], o_s)
+            _, has_ret, of6 = hash_lookup(
+                (wr_recv[..., 0],), wr_valid, None, (low_word(o_s),), live,
+                _sent(wr))
             qual = live & (r_s[..., 7] == 7) & has_ret & multi
             distinct = (seg.first & (seg.sum(qual) > 0)).sum(dim=1)
             cost = torch.where(qual, to_u64(r_s[..., 5]), 0).sum(dim=1)
             profit = torch.where(qual, to_u64(r_s[..., 6]), 0).sum(dim=1)
-        overflowed = of1 | of2 | of3 | of4 | of5
+        overflowed = of1 | of2 | of3 | of4 | of5 | of6
         partial = torch.stack([distinct, _wrap32(cost), _wrap32(profit)],
                               dim=1).to(torch.int32)
         return partial, overflowed
@@ -361,13 +370,16 @@ def run_q95(mesh: VirtualMesh, cfg: Q95Config, seed: int = 0,
             ) -> Tuple[int, int, int]:
     """Host driver: the exact global q95 answer. ``tables`` is a
     ``generate_q95`` result (made from ``seed`` when not given). Raises
-    ``OverflowError`` when a shuffle overflowed its receive headroom."""
+    ``OverflowError`` when a shuffle overflowed its receive headroom or a
+    lookup its bound (``hash_lookup``'s flag)."""
     if tables is None:
         tables = generate_q95(cfg, mesh.num_shards, seed)
     partial, overflowed = make_q95_step(mesh, cfg, impl)(
         *_stage_all(mesh, tables))
     if overflowed.any().item():
-        raise OverflowError("q95 exchange overflowed; raise out_factor")
+        raise OverflowError("q95: an exchange overflowed its receive "
+                            "headroom (raise out_factor) or a lookup "
+                            "its bound")
     totals = partial.cpu().numpy().sum(axis=0).astype(np.int64)
     return int(totals[0]), int(totals[1]), int(totals[2])
 
@@ -500,7 +512,7 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
     ``step(ss, sr, cs, cr, date)`` takes ``int32[D, rows, W]`` u32 words
     and returns per-shard partials ``(int32[D, 2], overflowed bool[D])``.
     The pair joins carry each pair as the rows' first two words (item
-    high, key low), route by ``_pairkey`` and look up on ``_pair64``.
+    high, key low), route by ``_pairkey`` and look up on those words.
     """
     n = mesh.num_shards
     impl = resolve_transport(mesh, impl)
@@ -511,18 +523,19 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
         return _route(_pairkey(to_u64(t[..., 0]), to_u64(t[..., 1])),
                       _all(t), n)
 
-    def pair_lookup(dim, dim_valid, dim_attr, rows, valid):
+    def pair_lookup(dim, dim_valid, dim_attr, rows, valid, bound):
         with trace_mod.span("q64.pair_lookup"):
-            return lookup_unique(
-                _pair64(dim), dim_valid, dim_attr,
-                torch.where(valid, _pair64(rows), SENTINEL64))
+            return hash_lookup((dim[..., 0], dim[..., 1]), dim_valid,
+                               dim_attr, (rows[..., 0], rows[..., 1]), valid,
+                               bound)
 
     def step(ss, sr, cs, cr, date):
         with trace_mod.span("q64.catalog_join"):
             # round 1: catalog pair join
             cs_r, cs_v, o1 = shuffle_into(cs, by_pair(cs), cap_cs, impl)
             cr_r, cr_v, o2 = shuffle_into(cr, by_pair(cr), cap_cs, impl)
-            refund, found = pair_lookup(cr_r, cr_v, cr_r[..., 2], cs_r, cs_v)
+            refund, found, o9 = pair_lookup(cr_r, cr_v, cr_r[..., 2], cs_r,
+                                            cs_v, _sent(cr))
             refund = torch.where(found, refund, 0)
         with trace_mod.span("q64.catalog_group"):
             # round 2: group catalog by item -> cs_ui
@@ -538,13 +551,14 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
                                                    0)))
             refund_sum = seg.sum(torch.where(live, to_u64(j_s[..., 2]), 0))
             ui_flag = sale_sum > _wrap32(2 * refund_sum)
-            # one entry per item run -> this shard's (item, ui) table
-            ui_item = torch.where(seg.first & ui_flag & live, ik_s, SENTINEL)
+            # one entry per item run -> this shard's cs_ui items
+            ui = seg.first & ui_flag & live
         with trace_mod.span("q64.store_join"):
             # round 3: store pair join (inner)
             ss_r, ss_v, o4 = shuffle_into(ss, by_pair(ss), cap_ss, impl)
             sr_r, sr_v, o5 = shuffle_into(sr, by_pair(sr), cap_ss, impl)
-            _, ret_found = pair_lookup(sr_r, sr_v, sr_r[..., 1], ss_r, ss_v)
+            _, ret_found, o10 = pair_lookup(sr_r, sr_v, None, ss_r, ss_v,
+                                            _sent(sr))
             surv_v = ss_v & ret_found
         with trace_mod.span("q64.date_join"):
             # round 4: date join on survivors
@@ -553,9 +567,9 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
                 _dim_cap(date.shape[1], n), impl)
             s2, s2_v, o7 = shuffle_into(ss_r, _route(ss_r[..., 2], surv_v, n),
                                         cap_ss, impl)
-            year, y_found = lookup_unique(
-                d_r[..., 0], d_v, d_r[..., 1],
-                torch.where(s2_v, to_u64(s2[..., 2]), SENTINEL))
+            year, y_found, o11 = hash_lookup(
+                (d_r[..., 0],), d_v, d_r[..., 1], (s2[..., 2],), s2_v,
+                _sent(date))
             s2_v = s2_v & y_found & (year <= 1)
         with trace_mod.span("q64.by_item"):
             # round 5: group by item; semi-join cs_ui; CTE self-join
@@ -572,13 +586,16 @@ def make_q64_step(mesh: VirtualMesh, cfg: Q64Config, impl: str = "auto"):
             sum01 = seg5.sum(torch.where(live5, to_u64(r5_s[..., 2]), 0))
             # items were routed by the SAME hash in rounds 2 and 5, so the
             # semi-join against this shard's cs_ui entries is local
-            _, is_ui = lookup_unique(ui_item, ui_item != SENTINEL, ui_item,
-                                     ik5_s)
+            # (one entry per item: at most num_items of them)
+            _, is_ui, o12 = hash_lookup(
+                (low_word(ik_s),), ui, None, (low_word(ik5_s),), live5,
+                min(cfg.num_items, _sent(ik_s)))
             qual = (seg5.first & is_ui & live5 & (cnt0 > 0) & (cnt1 > 0)
                     & (cnt1 <= cnt0))
             items = qual.sum(dim=1)
             total = torch.where(qual, sum01, 0).sum(dim=1)
-        overflowed = o1 | o2 | o3 | o4 | o5 | o6 | o7 | o8
+        overflowed = (o1 | o2 | o3 | o4 | o5 | o6 | o7 | o8 | o9 | o10 | o11
+                      | o12)
         return (torch.stack([items, _wrap32(total)], dim=1).to(torch.int32),
                 overflowed)
 
@@ -590,13 +607,16 @@ def run_q64(mesh: VirtualMesh, cfg: Q64Config, seed: int = 0,
             ) -> Tuple[int, int]:
     """Host driver: the exact global q64 answer. ``tables`` is a
     ``generate_q64`` result (made from ``seed`` when not given). Raises
-    ``OverflowError`` when a shuffle overflowed its receive headroom."""
+    ``OverflowError`` when a shuffle overflowed its receive headroom or a
+    lookup its bound (``hash_lookup``'s flag)."""
     if tables is None:
         tables = generate_q64(cfg, mesh.num_shards, seed)
     partial, overflowed = make_q64_step(mesh, cfg, impl)(
         *_stage_all(mesh, tables))
     if overflowed.any().item():
-        raise OverflowError("q64 exchange overflowed; raise out_factor")
+        raise OverflowError("q64: an exchange overflowed its receive "
+                            "headroom (raise out_factor) or a lookup "
+                            "its bound")
     totals = partial.cpu().numpy().sum(axis=0).astype(np.int64)
     return int(totals[0]), int(totals[1])
 

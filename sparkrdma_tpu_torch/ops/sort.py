@@ -13,8 +13,9 @@ sort and q95's aggregate sort call; ``sort_live_rows``, that sort with
 pad rows sent last and key 0 written back, for the one-shard step and
 ``sort_received``, the ``dest`` step's sort of received rows and the
 plain version ``ops/run_merge.py``'s merge kernel is held to; and
-``lookup_unique``, the sorted unique-key join of the query plans, on
-u32 words or on 64-bit composite keys.
+``lookup_unique``, the sorted unique-key join on u32 words or on 64-bit
+composite keys: the plain version of ``ops/hash_lookup.py``'s lookup,
+which the query plans call.
 
 Sorts are stable (ties keep their input order). ``lax.sort`` in the JAX
 package makes no promise about the order of ties, so the two agree

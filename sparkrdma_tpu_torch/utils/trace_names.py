@@ -68,6 +68,7 @@ SPANS = frozenset({
     "fused.receive_sort",
     "join.exchange",
     "join.merge",
+    "lookup.unique",
     "mesh.take_rows",
     "pagerank.contrib",
     "pagerank.exchange",

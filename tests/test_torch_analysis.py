@@ -64,7 +64,8 @@ STEP_SPANS = {
     "exchange.group",
     "exchange.pack", "exchange.receive_fill", "exchange.slot_fill",
     "exchange.transport", "fused.counts", "fused.local_sort",
-    "fused.receive_sort", "join.exchange", "join.merge", "mesh.take_rows",
+    "fused.receive_sort", "join.exchange", "join.merge", "lookup.unique",
+    "mesh.take_rows",
     "pagerank.contrib", "pagerank.exchange", "pagerank.sum", "q64.by_item",
     "q64.catalog_group", "q64.catalog_join", "q64.date_join",
     "q64.pair_lookup", "q64.store_join", "q95.addr", "q95.aggregate", "q95.aggregate.sort",

@@ -49,6 +49,7 @@ PORTED = (
     "ops/_build.py",
     "ops/aggregate.py",
     "ops/dest_partition.py",
+    "ops/hash_lookup.py",
     "ops/partition.py",
     "ops/ragged_exchange.py",
     "ops/ring_exchange.py",

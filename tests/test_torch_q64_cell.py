@@ -20,6 +20,7 @@ from benchmarks import harness
 from benchmarks.jobs import q64 as job
 from benchmarks.reference import q64 as reference
 from sparkrdma_tpu_torch.models import tpcds_queries as tq
+from sparkrdma_tpu_torch.ops import hash_lookup
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 from sparkrdma_tpu_torch.utils.u32 import MASK, rows_from_numpy, to_u64
 
@@ -70,7 +71,8 @@ def test_pair64_is_exact_and_dead_rows_take_the_sentinel():
     words = np.array([[0, 0], [1, 0xFFFFFFFF], [0x7FFFFFFE, 0xFFFFFFFF],
                       [0xFFFFFFFF, 0xFFFFFFFF], [102_000, 28_800_990]],
                      np.uint32)
-    got = tq._pair64(torch.from_numpy(words.view(np.int32))).tolist()
+    cols = torch.from_numpy(words.view(np.int32))
+    got = hash_lookup.pair64(cols[:, 0], cols[:, 1]).tolist()
     assert got[0] == 0 and got[1] == (1 << 32) + MASK
     assert got[2] == (0x7FFFFFFE << 32) + MASK < SENTINEL64
     assert got[3] == SENTINEL64
@@ -129,9 +131,8 @@ def test_program_passes_the_check():
     assert result["checks"]["partials_wrong"]["value"] == 0
 
 
-def _truncated_pair(rows: torch.Tensor) -> torch.Tensor:
-    return ((to_u64(rows[..., 0]) & 0xFFFF) << 16) | (
-        to_u64(rows[..., 1]) & 0xFFFF)
+def _truncated_pair(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    return ((to_u64(hi) & 0xFFFF) << 16) | (to_u64(lo) & 0xFFFF)
 
 
 def _a_return_that_counts(seed: int) -> int:
@@ -163,7 +164,7 @@ def _wrap_step(monkeypatch, around) -> None:
 def test_fault_makes_the_run_incorrect(monkeypatch, fault):
     seed = 43
     if fault == "pair_truncated":
-        monkeypatch.setattr(tq, "_pair64", _truncated_pair)
+        monkeypatch.setattr(hash_lookup, "pair64", _truncated_pair)
     elif fault == "return_dropped":
         row = _a_return_that_counts(seed)
 

@@ -6,7 +6,8 @@ neither, a step enters the dispatcher for no span. The step paths that
 the benchmark's cells run emit the spans its readers select on (the row
 gather, the grouping, the receive fill, q95's aggregate sort, q64's
 joins, groupings and pair lookups), and count
-the bytes their gathers and exchanges move. Here on the CPU, at small
+the bytes their gathers and exchanges move, and the probes their lookups
+answer. Here on the CPU, at small
 sizes of the cells' own configurations, with the benchmark's readers run
 on synthetic summaries.
 """
@@ -90,13 +91,15 @@ def _job(kind: str, impl: str, monkeypatch):
 
 @pytest.mark.parametrize("kind,names", [
     ("q95", {"mesh.take_rows", "exchange.group", "exchange.receive_fill",
-             "exchange.transport", "q95.aggregate", "q95.aggregate.sort"}),
+             "exchange.transport", "q95.aggregate", "q95.aggregate.sort",
+             "lookup.unique"}),
     ("terasort", {"mesh.take_rows", "exchange.receive_fill",
                   "exchange.transport", "fused.local_sort",
                   "fused.receive_sort"}),
     ("q64", {"mesh.take_rows", "exchange.group", "exchange.receive_fill",
              "exchange.transport", "q64.catalog_join", "q64.catalog_group",
-             "q64.store_join", "q64.by_item", "q64.pair_lookup"}),
+             "q64.store_join", "q64.by_item", "q64.pair_lookup",
+             "lookup.unique"}),
 ])
 def test_a_profiled_step_emits_its_spans(kind, names, monkeypatch):
     _, run = _job(kind, "native", monkeypatch)
@@ -116,9 +119,10 @@ _READ = {"q95.date", "q95.addr", "q95.site", "q95.by_order", "q95.aggregate",
          "q95.aggregate.sort", "exchange.group", "exchange.receive_fill",
          "exchange.transport", "mesh.take_rows", "fused.local_sort",
          "fused.receive_sort", "q64.catalog_join", "q64.store_join",
-         "q64.catalog_group", "q64.by_item", "q64.pair_lookup"}
+         "q64.catalog_group", "q64.by_item", "q64.pair_lookup",
+         "lookup.unique"}
 # how many of them each step opens
-_READ_IN = {"q95": 10, "terasort": 5, "q64": 9}
+_READ_IN = {"q95": 11, "terasort": 5, "q64": 10}
 
 
 @pytest.mark.parametrize("kind", ["q95", "terasort", "q64"])
@@ -127,7 +131,8 @@ def test_a_read_span_opens_and_closes_on_its_own_work(kind, monkeypatch):
     range runs from its first to its last own kernel: each span a reader
     takes device time from starts and ends with an op of its own, so its
     range covers the spans nested in it (q95's aggregate sort, q64's pair
-    lookups and the sorts' row gathers)."""
+    lookups, every lookup's ``lookup.unique`` and the sorts' row
+    gathers)."""
     _, run = _job(kind, "native", monkeypatch)
     with _profile() as prof:
         run()
@@ -361,6 +366,46 @@ def test_the_transport_counter_adds_on_the_device_with_no_sync():
     assert trace.counts() == {"exchange.bytes": 11 * 8 * 2}
 
 
+@pytest.mark.parametrize("kind", ["q95", "q64"])
+def test_the_lookup_counters_count_only_while_profiled(kind, monkeypatch):
+    """Each lookup counts its probes that take part (``lookup.probes``)
+    and those it finds (``lookup.found``), on the device as tensors, and
+    only while a profiler records: a job's counts are what its lookups
+    return, and a job run with no profiler adds nothing."""
+    from sparkrdma_tpu_torch.ops import hash_lookup
+
+    answered = []
+    inner = hash_lookup.hash_lookup
+
+    def recorded(dim_keys, dim_valid, dim_attr, probe_keys, probe_valid,
+                 bound):
+        got = inner(dim_keys, dim_valid, dim_attr, probe_keys, probe_valid,
+                    bound)
+        first = probe_keys[0].to(torch.int64) & 0xFFFFFFFF
+        key = (first < hash_lookup.HIGH_LIMIT if len(probe_keys) == 2
+               else first != hash_lookup.NO_KEY)
+        if probe_valid is not None:
+            key &= probe_valid
+        answered.append((int(key.sum()),
+                         int(got[1].sum())))
+        return got
+
+    from sparkrdma_tpu_torch.models import tpcds_queries
+    monkeypatch.setattr(tpcds_queries, "hash_lookup", recorded)
+    _, run = _job(kind, "native", monkeypatch)
+    _fresh()
+    with _profile():
+        run()
+    assert trace._counts["lookup.probes"].dtype == torch.int64
+    got = trace.counts()
+    assert len(answered) == {"q95": 4, "q64": 4}[kind]
+    assert got["lookup.probes"] == sum(p for p, _ in answered) > 0
+    assert got["lookup.found"] == sum(f for _, f in answered) > 0
+    assert got["lookup.found"] < got["lookup.probes"]
+    run()                                      # no profiler: not counted
+    assert trace.counts() == got
+
+
 # -- the benchmark's readers on a synthetic summary ---------------------------
 
 def _ctx(spans_us: dict, jobs: int = 2) -> harness.Context:
@@ -373,7 +418,8 @@ SPANS = {"mesh.take_rows": 8000.0, "exchange.receive_fill": 600.0,
          "exchange.group": 3000.0, "q95.aggregate.sort": 4200.0,
          "fused.receive_sort": 9000.0, "q64.catalog_join": 1000.0,
          "q64.store_join": 3000.0, "q64.catalog_group": 500.0,
-         "q64.by_item": 700.0, "q64.pair_lookup": 1800.0}
+         "q64.by_item": 700.0, "q64.pair_lookup": 1800.0,
+         "lookup.unique": 2600.0}
 COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB,
           "fused.merge_bytes": 2 * 9.6 * GB,
           "exchange.group_bytes": 2 * 6.1 * GB}
@@ -387,6 +433,7 @@ COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB,
     ("q64.pair_joins_ms", 2.0),
     ("q64.item_groups_ms", 0.6),
     ("q64.pair_lookup_ms", 0.9),
+    ("lookup.unique_ms", 1.3),
     ("gather.gb", 6.0),
     ("exchange.gb", 3.0),
     # 6 GB at 3.35 TB/s over 4 ms
