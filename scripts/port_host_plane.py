@@ -125,6 +125,7 @@ HUNKS = {
         "    # and its step spans (utils/trace.span): the device plane's\n"
         "    # layers, the row gather, the exchange's phases and each\n"
         "    # model's rounds, which the benchmark's readers select on\n"
+        '    "als.gram",\n'
         '    "als.group",\n'
         '    "als.solve",\n'
         '    "chunked.land",\n'

@@ -16,12 +16,20 @@ One half-step (solving item factors from fixed user factors):
    stable order as the JAX package's host-side grouping, and the chunked
    exchange moves them there (span ``als.group``, then ``chunked.*``);
 3. per entity: the normal equations ``A^T A + reg*I`` and ``A^T r`` over
-   its ratings' other-side factors, summed by ``index_add_``, then one
-   batched ``torch.linalg.solve`` (span ``als.solve``). The JAX package
-   solves with ``jnp.linalg.solve`` outside any Pallas kernel, so the
-   library solve is the port of it.
+   its ratings' other-side factors, summed by ``index_add_`` (span
+   ``als.gram``), then one batched ``torch.linalg.solve`` (span
+   ``als.solve``, around ``als.gram``). The JAX package solves with
+   ``jnp.linalg.solve`` outside any Pallas kernel, so the library solve
+   is the port of it. With ``ALSConfig.weighted_reg`` the diagonal is
+   MLlib's ``reg * n_e`` (ALS-WR, Zhou et al. 2008), ``n_e`` entity e's
+   ratings, counted on the device from the rows it received.
 
-Every result stays on the device until the factors are returned.
+Every result stays on the device until the factors are returned. While
+profiled, a half-step counts ``als.rounds`` (its chunked rounds),
+``als.ratings`` (rows summed into normal equations), ``als.entities``
+(entities solved) and ``als.gram_bytes`` (the sums' bytes from shapes:
+each row's other-side factor, rating and entity id read, each entity's
+``k*k + k`` float32 sums written).
 """
 
 from __future__ import annotations
@@ -50,6 +58,9 @@ class ALSConfig:
     rank: int = 8
     reg: float = 0.1
     zipf_a: float = 1.3  # item popularity skew
+    # MLlib's regularisation: entity e's diagonal is reg * n_e (its
+    # ratings) instead of reg
+    weighted_reg: bool = False
 
 
 def generate_ratings(cfg: ALSConfig, num_devices: int, per_device: int,
@@ -86,19 +97,24 @@ def solve_item_factors(ratings_for_device: torch.Tensor,
     factors). Returns float32 ``[len(items_on_device), k]``.
 
     As in the JAX package the entity count is bucketed to a power of two
-    (``n_pad``; padded entities see ``reg*I x = 0``) and the rows are
-    summed in chunks of at most 2**20, which bounds the ``[CH, k, k]``
-    outer-product transient. The JAX chunks are padded to one static
-    shape with rows aimed past ``n_pad`` that ``mode="drop"`` discards;
-    eager PyTorch needs no static shape, so the last chunk is short and
-    no pad row exists.
+    (``n_pad``; padded entities see ``reg*I x = 0``, weighted or not) and
+    the rows are summed in chunks of at most 2**20, which bounds the
+    ``[CH, k, k]`` outer-product transient. The JAX chunks are padded to
+    one static shape with rows aimed past ``n_pad`` that ``mode="drop"``
+    discards; eager PyTorch needs no static shape, so the last chunk is
+    short and no pad row exists.
 
     Each chunk sums into a zeroed buffer that is then added to the
     running total. Summing every chunk straight into the running float32
     total stagnates once the total dwarfs its terms: a hot item with 25M
     ratings of rank-8 factors lost 5.8% of a diagonal entry that way in a
     float32 simulation, and 0.05% with per-chunk partials. On the card
-    ``index_add_`` sums with atomics, in no fixed order."""
+    ``index_add_`` sums with atomics, in no fixed order. The chunks'
+    gathers, outer products and sums are the ``als.gram`` span.
+
+    With ``cfg.weighted_reg`` entity e's diagonal is ``reg * n_e``, its
+    rows here counted on the device, as MLlib's ``computeFactors``
+    regularises."""
     k = cfg.rank
     dev = ratings_for_device.device
     keys = to_u64(ratings_for_device[:, key_col])
@@ -111,14 +127,20 @@ def solve_item_factors(ratings_for_device: torch.Tensor,
     atr = torch.zeros((n_pad, k), dtype=torch.float32, device=dev)
     rows = ratings_for_device.shape[0]
     ch = min(_SOLVE_CHUNK, 1 << max(10, (max(rows, 1) - 1).bit_length()))
-    for lo in range(0, rows, ch):
-        u = user_factors.index_select(0, others[lo:lo + ch])
-        li = local_key[lo:lo + ch]
-        r = vals[lo:lo + ch]
-        ata += torch.zeros_like(ata).index_add_(
-            0, li, u[:, :, None] * u[:, None, :])
-        atr += torch.zeros_like(atr).index_add_(0, li, u * r[:, None])
-    ata = ata + cfg.reg * torch.eye(k, dtype=torch.float32, device=dev)[None]
+    with trace_mod.span("als.gram"):
+        for lo in range(0, rows, ch):
+            u = user_factors.index_select(0, others[lo:lo + ch])
+            li = local_key[lo:lo + ch]
+            r = vals[lo:lo + ch]
+            ata += torch.zeros_like(ata).index_add_(
+                0, li, u[:, :, None] * u[:, None, :])
+            atr += torch.zeros_like(atr).index_add_(0, li, u * r[:, None])
+    reg = cfg.reg
+    if cfg.weighted_reg:
+        # a padded entity has no row and keeps reg * I
+        n_e = torch.bincount(local_key, minlength=n_pad).clamp_(min=1)
+        reg = cfg.reg * n_e.to(torch.float32)[:, None, None]
+    ata = ata + reg * torch.eye(k, dtype=torch.float32, device=dev)[None]
     return torch.linalg.solve(ata, atr[..., None])[..., 0][:n_keys]
 
 
@@ -131,17 +153,20 @@ def exchange_ratings(mesh: VirtualMesh,
     the chunked exchange. ``ratings`` is the JAX layout ``u32[D*per, 3]``
     or the mesh layout ``int32[D, per, 3]`` already on ``mesh.device``.
     Returns ``(received, rounds)``: ``received[d]`` is shard d's rows on
-    the device, grouped by source shard in each source's order."""
+    the device, grouped by source shard in each source's order. A row
+    whose key column is negative as int32 pads a shard and is not
+    sent."""
     n = mesh.num_shards
     rows = (ratings if isinstance(ratings, torch.Tensor)
             else rows_from_numpy(ratings, mesh))
     with trace_mod.span("als.group"):
+        keys = rows[..., key_col]
+        # ids lie below 2**31: a key negative as int32 marks a pad row,
+        # which the grouping leaves behind
         grouped, counts = group_by_destination(
-            rows, to_u64(rows[..., key_col]) % n, n)
+            rows, torch.where(keys < 0, n, to_u64(keys) % n), n)
         counts = counts.cpu().numpy()  # the host driver sizes the rounds
-    acc, totals, rounds = chunked_exchange_resident(mesh, grouped, counts,
-                                                    quota, impl)
-    return [acc[d, :int(totals[d])] for d in range(n)], rounds
+    return chunked_exchange_resident(mesh, grouped, counts, quota, impl)
 
 
 def als_half_step(mesh: VirtualMesh, cfg: ALSConfig,
@@ -168,6 +193,14 @@ def als_half_step(mesh: VirtualMesh, cfg: ALSConfig,
             keys_here = torch.unique(to_u64(rows[:, key_col]))
             factors[keys_here] = solve_item_factors(rows, fixed, cfg,
                                                     keys_here, key_col)
+            if trace_mod.counting():
+                n, e, k = rows.shape[0], keys_here.numel(), cfg.rank
+                trace_mod.count("als.ratings", n)
+                trace_mod.count("als.entities", e)
+                trace_mod.count("als.gram_bytes",
+                                n * (4 * k + 8) + e * 4 * (k * k + k))
+    if trace_mod.counting():
+        trace_mod.count("als.rounds", rounds)
     return factors.cpu().numpy(), rounds
 
 

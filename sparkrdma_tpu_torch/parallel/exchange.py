@@ -667,16 +667,22 @@ def make_chunked_exchange(mesh, quota: int, impl: str = "auto"):
 
 
 def _land(acc: torch.Tensor, received: torch.Tensor, counts: torch.Tensor,
-          round_idx: int, quota: int) -> None:
-    """Land one round's received rows in ``acc [D, cap_out, ...]`` at their
-    final source-major place ``base[src] + lo[src] + w``. Each place is
-    landed once in the whole exchange and ``acc`` starts zeroed, so adding
-    a row into it is the JAX ``set``; a slot past its source's count adds
-    a zero row at a spread place (``spread_index``). That drops it without
-    the host sync a filter would need, and never writes past the end.
-    Integer adds, so exact."""
-    n, cap = acc.shape[0], acc.shape[1]
+          round_idx: int, quota: int,
+          starts: Optional[torch.Tensor] = None) -> None:
+    """Land one round's received rows in ``acc`` at their final
+    source-major place ``starts[receiver] + base[src] + lo[src] + w``:
+    ``acc`` is ``[D, cap_out, ...]`` (``starts`` then ``d * cap_out``) or
+    one flat ``[rows, ...]`` buffer with each receiver's first place in
+    ``starts``. Each place is landed once in the whole exchange and
+    ``acc`` starts zeroed, so adding a row into it is the JAX ``set``; a
+    slot past its source's count adds a zero row at a place spread by
+    its position. That drops it without the host sync a filter would
+    need, and never writes past the end. Integer adds, so exact."""
+    n = counts.shape[0]
     dev = acc.device
+    flat_acc = acc.view((-1,) + received.shape[2:])
+    if starts is None:
+        starts = torch.arange(n, device=dev) * acc.shape[1]
     to_me = counts.t().to(torch.int64)            # [receiver, source]
     base = _exclusive_cumsum(to_me, dim=1)        # source-major layout
     lo = torch.clamp(to_me, max=round_idx * quota)
@@ -687,18 +693,22 @@ def _land(acc: torch.Tensor, received: torch.Tensor, counts: torch.Tensor,
     valid = w < rcnt[:, src]
     rows = take_rows(received, torch.where(valid, off[:, src] + w, 0))
     rows.masked_fill_(~_trail(valid, rows), 0)
-    flat = spread_index(valid, base[:, src] + lo[:, src] + w, cap)
-    acc.view((n * cap,) + acc.shape[2:]).index_add_(
-        0, flat.reshape(-1), rows.reshape((-1,) + rows.shape[2:]))
+    # spread the no-op adds so they do not queue as atomics on one place
+    spread = torch.arange(n * quota, device=dev) % flat_acc.shape[0]
+    flat = torch.where(valid, starts[:, None] + base[:, src] + lo[:, src] + w,
+                       spread)
+    flat_acc.index_add_(0, flat.reshape(-1),
+                        rows.reshape((-1,) + rows.shape[2:]))
 
 
 def _round_acc(grouped: torch.Tensor, counts: torch.Tensor, round_idx: int,
-               acc: torch.Tensor, quota: int, impl: str) -> torch.Tensor:
-    """One round of the chunked exchange, landed in ``acc``; ``quota`` is
-    bucketed and ``impl`` resolved."""
+               acc: torch.Tensor, quota: int, impl: str,
+               starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One round of the chunked exchange, landed in ``acc`` (``_land``'s
+    layouts); ``quota`` is bucketed and ``impl`` resolved."""
     received, _ = _chunked_round(grouped, counts, round_idx, quota, impl)
     with trace_mod.span("chunked.land"):
-        _land(acc, received, counts, round_idx, quota)
+        _land(acc, received, counts, round_idx, quota, starts)
     return acc
 
 
@@ -718,14 +728,15 @@ def make_chunked_exchange_acc(mesh, quota: int, impl: str = "auto"):
 def chunked_exchange_resident(mesh, grouped: torch.Tensor,
                               counts: np.ndarray, quota: int,
                               impl: str = "auto",
-                              ) -> Tuple[torch.Tensor, np.ndarray, int]:
+                              ) -> Tuple[List[torch.Tensor], int]:
     """The chunked exchange with its result left on the device.
 
     ``grouped [D, cap, ...]`` destination-grouped rows on the mesh's
     device, ``counts [D, D]`` host counts (``counts[s, d]`` rows from s
-    to d). Returns ``(acc [D, cap_out, ...], recv_totals [D], rounds)``:
-    shard d's received rows are ``acc[d, :recv_totals[d]]``, grouped by
-    source in each source's original order.
+    to d). Returns ``(received, rounds)``: ``received[d]`` is shard d's
+    rows, grouped by source in each source's original order. Every
+    receiver's rows lie back to back in one accumulator, so its size is
+    the rows moved however they are skewed over the receivers.
 
     The rounds run back to back with no host synchronisation. (The JAX
     driver synchronises every round on XLA:CPU, where a collective parks
@@ -736,17 +747,19 @@ def chunked_exchange_resident(mesh, grouped: torch.Tensor,
     counts_host = np.asarray(counts, dtype=np.int64).reshape(n, n)
     num_rounds = max(1, -(-int(counts_host.max()) // quota))
     recv_totals = counts_host.sum(axis=0)
-    cap_out = max(1, int(recv_totals.max()))
+    total = int(recv_totals.sum())
     impl = resolve_transport(mesh, impl)
     counts_d = torch.from_numpy(counts_host).to(mesh.device)
+    starts = torch.from_numpy(np.cumsum(recv_totals) - recv_totals).to(
+        mesh.device)
     # an accumulator, not a receive buffer: every round adds into it, so
     # all of it must start zero
-    acc = torch.zeros((n, cap_out) + tuple(grouped.shape[2:]),
+    acc = torch.zeros((max(1, total),) + tuple(grouped.shape[2:]),
                       dtype=grouped.dtype, device=mesh.device)
     for r in range(num_rounds):
-        _round_acc(grouped, counts_d, r, acc, quota, impl)
-    record_exchange(int(counts_host.sum()))
-    return acc, recv_totals, num_rounds
+        _round_acc(grouped, counts_d, r, acc, quota, impl, starts)
+    record_exchange(total)
+    return list(acc[:total].split(recv_totals.tolist())), num_rounds
 
 
 def chunked_exchange(mesh, grouped: np.ndarray, counts: np.ndarray,
@@ -760,8 +773,6 @@ def chunked_exchange(mesh, grouped: np.ndarray, counts: np.ndarray,
     ``ragged_exchange_shard`` contract). ``quota`` is bucketed up to the
     next power of two (``bucket_quota``). The rows cross to the device
     once and back once, one copy per shard at the end."""
-    acc, recv_totals, rounds = chunked_exchange_resident(
+    received, rounds = chunked_exchange_resident(
         mesh, rows_from_numpy(grouped, mesh), counts, quota, impl)
-    results = [acc[d, :int(recv_totals[d])].cpu().numpy().view(
-        grouped.dtype) for d in range(mesh.num_shards)]
-    return results, rounds
+    return [r.cpu().numpy().view(grouped.dtype) for r in received], rounds

@@ -51,6 +51,7 @@ SPANS = frozenset({
     # and its step spans (utils/trace.span): the device plane's
     # layers, the row gather, the exchange's phases and each
     # model's rounds, which the benchmark's readers select on
+    "als.gram",
     "als.group",
     "als.solve",
     "chunked.land",

@@ -59,7 +59,7 @@ PREFIX = re.compile(r"\bsparkrdma_tpu\b")
 # the port's step spans (``utils/trace.span``), which the benchmark's
 # readers and chip_smoke.py select on by name
 STEP_SPANS = {
-    "als.group", "als.solve", "chunked.land", "chunked.pack",
+    "als.gram", "als.group", "als.solve", "chunked.land", "chunked.pack",
     "chunked.slot_fill", "chunked.transport", "exchange.arena_copy",
     "exchange.group",
     "exchange.pack", "exchange.receive_fill", "exchange.slot_fill",

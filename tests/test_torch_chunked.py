@@ -216,18 +216,20 @@ def test_spread_index():
 
 def test_resident_accumulator_matches_host_result(vmesh):
     """``chunked_exchange_resident`` leaves the same rows on the device that
-    ``chunked_exchange`` brings back, with zeros past each shard's total."""
+    ``chunked_exchange`` brings back, every receiver's back to back in one
+    accumulator of exactly the rows moved."""
     rows, counts, quota = _case("empty_pairs")
-    acc, totals, rounds = tx.chunked_exchange_resident(
+    received, rounds = tx.chunked_exchange_resident(
         vmesh, rows_from_numpy(rows, vmesh), counts, quota)
-    received, rounds_host = tx.chunked_exchange(vmesh, rows, counts, quota)
+    host, rounds_host = tx.chunked_exchange(vmesh, rows, counts, quota)
     assert rounds == rounds_host
-    np.testing.assert_array_equal(totals, counts.sum(axis=0))
-    assert acc.shape == (D, int(totals.max()), rows.shape[1])
+    assert [r.shape[0] for r in received] == counts.sum(axis=0).tolist()
+    storage = received[0].untyped_storage()
+    assert storage.nbytes() == counts.sum() * rows.shape[1] * 4
     for d in range(D):
-        shard = acc[d].numpy().view(np.uint32)
-        np.testing.assert_array_equal(shard[:totals[d]], received[d])
-        assert not shard[totals[d]:].any()
+        assert received[d].untyped_storage().data_ptr() == storage.data_ptr()
+        np.testing.assert_array_equal(received[d].numpy().view(np.uint32),
+                                      host[d])
 
 
 def test_chunked_exchange_records_one_exchange(vmesh):

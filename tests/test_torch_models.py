@@ -11,7 +11,7 @@ card): PageRank ranks are held to ``rtol=1e-5``, ALS factors to
 two LAPACK paths) and to ``rtol=2e-2, atol=1e-3`` against the float64
 oracle, the JAX package's own tolerance."""
 
-from dataclasses import replace
+from dataclasses import fields, replace
 
 import jax
 import numpy as np
@@ -230,6 +230,14 @@ def test_numpy_join_matches_jax_oracle():
 ALS_CFG = tals.ALSConfig(num_users=64, num_items=16, rank=4, zipf_a=1.3)
 
 
+def _jcfg(cfg):
+    """The JAX package's ``ALSConfig`` of the same settings: it has no
+    ``weighted_reg``, and the port's default is its plain ``reg``."""
+    assert not cfg.weighted_reg
+    return jals.ALSConfig(**{f.name: getattr(cfg, f.name)
+                             for f in fields(jals.ALSConfig)})
+
+
 def _factors(n, k, seed):
     return np.random.default_rng(seed).normal(size=(n, k)).astype(np.float32)
 
@@ -250,7 +258,7 @@ def _jax_grouping(ratings, key_col):
 def test_generate_ratings_matches_jax():
     np.testing.assert_array_equal(
         tals.generate_ratings(ALS_CFG, D, 80, seed=5),
-        jals.generate_ratings(jals.ALSConfig(**ALS_CFG.__dict__), D, 80, 5))
+        jals.generate_ratings(_jcfg(ALS_CFG), D, 80, 5))
 
 
 @pytest.mark.parametrize("port_impl", ["ring", "gather"])
@@ -274,8 +282,8 @@ def test_solve_item_factors_matches_jax(key_col):
                      ALS_CFG.num_items, ALS_CFG.rank, 1)
     rows = ratings[ratings[:, key_col] % D == 2]
     keys = np.unique(rows[:, key_col])
-    want = jals.solve_item_factors(rows, other, jals.ALSConfig(
-        **ALS_CFG.__dict__), keys, key_col=key_col)
+    want = jals.solve_item_factors(rows, other, _jcfg(ALS_CFG), keys,
+                                   key_col=key_col)
     got = tals.solve_item_factors(
         torch.from_numpy(rows.view(np.int32)), torch.from_numpy(other),
         ALS_CFG, torch.from_numpy(keys.astype(np.int64)), key_col=key_col)
@@ -291,8 +299,7 @@ def test_als_half_step_matches_jax(mesh, vmesh, key_col, port_impl):
     other = _factors(ALS_CFG.num_users if key_col == 0 else
                      ALS_CFG.num_items, ALS_CFG.rank, 6)
     want, want_rounds = _cached(("als", key_col), lambda: jals.als_half_step(
-        mesh, jals.ALSConfig(**ALS_CFG.__dict__), ratings, other, quota=16,
-        key_col=key_col))
+        mesh, _jcfg(ALS_CFG), ratings, other, quota=16, key_col=key_col))
     got, rounds = tals.als_half_step(vmesh, ALS_CFG, ratings, other,
                                      quota=16, key_col=key_col,
                                      impl=port_impl)
@@ -315,8 +322,7 @@ def test_run_als_rmse_falls_like_jax(mesh, vmesh):
     assert history[1] < history[0] * 0.5, history
     assert history[2] <= history[1], history
     juf, jitf, jhistory, jrounds = jals.run_als(
-        mesh, jals.ALSConfig(**cfg.__dict__), ratings, quota=32,
-        iterations=2, seed=8)
+        mesh, _jcfg(cfg), ratings, quota=32, iterations=2, seed=8)
     assert rounds == jrounds
     np.testing.assert_allclose(history, jhistory, rtol=1e-3)
     np.testing.assert_allclose(itf, jitf, rtol=1e-2, atol=1e-3)

@@ -5,11 +5,11 @@ records, and a Tracer event only while its tracer is enabled; with
 neither, a step enters the dispatcher for no span. The step paths that
 the benchmark's cells run emit the spans its readers select on (the row
 gather, the grouping, the receive fill, q95's aggregate sort, q64's
-joins, groupings and pair lookups), and count
-the bytes their gathers and exchanges move, and the probes their lookups
-answer. Here on the CPU, at small
-sizes of the cells' own configurations, with the benchmark's readers run
-on synthetic summaries.
+joins, groupings and pair lookups, ALS's shuffles, normal equations and
+solves), and count the bytes their gathers and exchanges move, the probes
+their lookups answer, and ALS's rounds, ratings, entities and sums'
+bytes. Here on the CPU, at small sizes of the cells' own configurations,
+with the benchmark's readers run on synthetic summaries.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from benchmarks import harness  # noqa: E402
+from benchmarks.jobs import als as als_job  # noqa: E402
+from benchmarks.reference import als as als_reference  # noqa: E402
 from benchmarks.jobs import q64 as q64_job  # noqa: E402
 from benchmarks.jobs import q95 as q95_job  # noqa: E402
 from benchmarks.jobs import terasort as terasort_job  # noqa: E402
@@ -52,8 +54,12 @@ SMALL = {
         "store_returns_rows": 399, "catalog_sales_rows": 2001,
         "cs_rows_per_device": 251, "catalog_returns_rows": 200,
         "date_dim_rows": 730, "num_dates": 730}),
+    "als": ("als-netflix-mllib", {
+        "ratings": 6003, "users": 300, "items": 120, "rows_per_shard": 601,
+        "quota": 64}),
 }
-JOBS = {"q95": q95_job, "terasort": terasort_job, "q64": q64_job}
+JOBS = {"q95": q95_job, "terasort": terasort_job, "q64": q64_job,
+        "als": als_job}
 
 
 def _profile():
@@ -84,6 +90,8 @@ def _job(kind: str, impl: str, monkeypatch):
     if kind == "q64":
         return cfg, lambda: step(inputs["ss"], inputs["sr"], inputs["cs"],
                                  inputs["cr"], inputs["date"])
+    if kind == "als":
+        return cfg, lambda: step(inputs["ratings"], inputs["inits"][0])
     return cfg, lambda: step(inputs["rows"])
 
 
@@ -100,6 +108,10 @@ def _job(kind: str, impl: str, monkeypatch):
              "exchange.transport", "q64.catalog_join", "q64.catalog_group",
              "q64.store_join", "q64.by_item", "q64.pair_lookup",
              "lookup.unique"}),
+    ("als", {"mesh.take_rows", "exchange.group", "exchange.receive_fill",
+             "exchange.transport", "als.group", "als.solve", "als.gram",
+             "chunked.slot_fill", "chunked.pack", "chunked.transport",
+             "chunked.land"}),
 ])
 def test_a_profiled_step_emits_its_spans(kind, names, monkeypatch):
     _, run = _job(kind, "native", monkeypatch)
@@ -120,19 +132,21 @@ _READ = {"q95.date", "q95.addr", "q95.site", "q95.by_order", "q95.aggregate",
          "exchange.transport", "mesh.take_rows", "fused.local_sort",
          "fused.receive_sort", "q64.catalog_join", "q64.store_join",
          "q64.catalog_group", "q64.by_item", "q64.pair_lookup",
-         "lookup.unique"}
+         "lookup.unique", "als.group", "als.solve", "als.gram",
+         "chunked.slot_fill", "chunked.pack", "chunked.transport",
+         "chunked.land"}
 # how many of them each step opens
-_READ_IN = {"q95": 11, "terasort": 5, "q64": 10}
+_READ_IN = {"q95": 11, "terasort": 5, "q64": 10, "als": 11}
 
 
-@pytest.mark.parametrize("kind", ["q95", "terasort", "q64"])
+@pytest.mark.parametrize("kind", ["q95", "terasort", "q64", "als"])
 def test_a_read_span_opens_and_closes_on_its_own_work(kind, monkeypatch):
     """On the card a kernel belongs to the innermost open span, and a span's
     range runs from its first to its last own kernel: each span a reader
     takes device time from starts and ends with an op of its own, so its
     range covers the spans nested in it (q95's aggregate sort, q64's pair
-    lookups, every lookup's ``lookup.unique`` and the sorts' row
-    gathers)."""
+    lookups, every lookup's ``lookup.unique``, ALS's ``als.gram`` and the
+    sorts' row gathers)."""
     _, run = _job(kind, "native", monkeypatch)
     with _profile() as prof:
         run()
@@ -310,7 +324,7 @@ def test_counters_hold_only_the_last_profiled_window():
     assert trace.counts()["gather.bytes"] == 3 * one
 
 
-@pytest.mark.parametrize("kind", ["q95", "terasort"])
+@pytest.mark.parametrize("kind", ["q95", "terasort", "als"])
 @pytest.mark.parametrize("impl", ["native", "gather"])
 def test_the_transport_counter_is_the_jobs_exchange_bytes(kind, impl,
                                                           monkeypatch):
@@ -406,6 +420,91 @@ def test_the_lookup_counters_count_only_while_profiled(kind, monkeypatch):
     assert trace.counts() == got
 
 
+def test_the_gram_nests_in_the_solve_on_its_own_work(monkeypatch):
+    """Each shard's ``als.gram`` lies inside its half-step's ``als.solve``,
+    and ``als.solve`` runs ops of its own before the first and after the
+    last, so its range on the card covers every nested sum."""
+    cfg, run = _job("als", "native", monkeypatch)
+    with _profile() as prof:
+        run()
+    events = prof.events()
+    solves = [e for e in events if e.name == "als.solve"]
+    grams = [e for e in events if e.name == "als.gram"]
+    assert len(solves) == 2 and len(grams) == 2 * cfg["shards"]
+    assert all(g.cpu_parent is not None and g.cpu_parent.name == "als.solve"
+               for g in grams)
+    for solve in solves:
+        ops = [c for c in sorted(solve.cpu_children,
+                                 key=lambda c: c.time_range.start)
+               if c.name not in _VIEWS]
+        names = [op.name for op in ops]
+        first = names.index("als.gram")
+        last = len(names) - 1 - names[::-1].index("als.gram")
+        assert not any(op.is_user_annotation for op in ops[:first])
+        assert first > 0 and last < len(ops) - 1
+        assert not any(op.is_user_annotation for op in ops[last + 1:])
+
+
+@pytest.mark.parametrize("impl", ["native", "gather"])
+def test_the_als_counters_count_a_job(impl, monkeypatch):
+    """Under a profiler one job counts its chunked rounds, every live
+    rating once a half-step, every rated entity once, and the sums' bytes
+    of those shapes (``gram_bytes``); a job run with no profiler adds
+    nothing."""
+    cfg, run = _job("als", impl, monkeypatch)
+    rows = als_job.make_inputs(cfg, 11, "cpu")["ratings"]
+    live = rows.reshape(-1, 3)[:cfg["ratings"]]
+    assert (live[:, 0].unique().numel() + live[:, 1].unique().numel()
+            == cfg["items"] + cfg["users"])
+    # a shuffle's rounds: its largest (shard, block) pair over the quota
+    rounds = sum(-(-max(int(torch.bincount(s[s[:, col] >= 0, col] % 10,
+                                           minlength=10).max())
+                        for s in rows) // cfg["quota"])
+                 for col in (0, 1))
+    _fresh()
+    with _profile():
+        run()
+    got = trace.counts()
+    assert {k: v for k, v in got.items() if k.startswith("als.")} == {
+        "als.rounds": rounds, "als.ratings": 2 * cfg["ratings"],
+        "als.entities": cfg["items"] + cfg["users"],
+        "als.gram_bytes": als_job.gram_bytes(cfg)}
+    assert rounds >= 4
+    run()                                      # no profiler: not counted
+    assert trace.counts() == got
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_a_weighted_half_step_on_the_card_equals_the_reference(cuda):
+    """One weighted item half-step at D = 10 on the card (the native
+    transport, the partition and row gather kernels, float32 atomics)
+    against the float64 reference, each entity within the cell's limit."""
+    from sparkrdma_tpu_torch.models.als import ALSConfig, als_half_step
+
+    cfg = dict(harness.load_config("als-netflix-mllib"), ratings=2_000_003,
+               users=40_000, items=2_000, rows_per_shard=200_001,
+               quota=1 << 13)
+    inputs = als_job.make_inputs(cfg, 2**40 + 7, cuda)
+    users = inputs["inits"][0]
+    port = ALSConfig(num_users=cfg["users"], num_items=cfg["items"],
+                     rank=cfg["rank"], reg=cfg["reg"], weighted_reg=True)
+    items, rounds = als_half_step(VirtualMesh(10, cuda), port,
+                                  inputs["ratings"], users, cfg["quota"])
+    want = als_reference.half_step(inputs["ratings"], torch.from_numpy(users),
+                                   key_col=0, num_out=cfg["items"],
+                                   reg=cfg["reg"])
+    err = als_job.relative_errors(items, want)
+    assert rounds >= 2
+    assert float(err.max()) <= als_job.ERR_LIMIT
+
+
 # -- the benchmark's readers on a synthetic summary ---------------------------
 
 def _ctx(spans_us: dict, jobs: int = 2) -> harness.Context:
@@ -419,10 +518,14 @@ SPANS = {"mesh.take_rows": 8000.0, "exchange.receive_fill": 600.0,
          "fused.receive_sort": 9000.0, "q64.catalog_join": 1000.0,
          "q64.store_join": 3000.0, "q64.catalog_group": 500.0,
          "q64.by_item": 700.0, "q64.pair_lookup": 1800.0,
-         "lookup.unique": 2600.0}
+         "lookup.unique": 2600.0, "als.group": 400.0,
+         "chunked.slot_fill": 300.0, "chunked.pack": 200.0,
+         "chunked.transport": 100.0, "chunked.land": 1000.0,
+         "als.gram": 5000.0, "als.solve": 6000.0}
 COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB,
           "fused.merge_bytes": 2 * 9.6 * GB,
-          "exchange.group_bytes": 2 * 6.1 * GB}
+          "exchange.group_bytes": 2 * 6.1 * GB,
+          "als.gram_bytes": 2 * 9.8 * GB}
 
 
 @pytest.mark.parametrize("metric,want", [
@@ -434,6 +537,9 @@ COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB,
     ("q64.item_groups_ms", 0.6),
     ("q64.pair_lookup_ms", 0.9),
     ("lookup.unique_ms", 1.3),
+    ("als.shuffle_ms", 1.0),
+    ("als.gram_ms", 2.5),
+    ("als.solve_ms", 3.0),
     ("gather.gb", 6.0),
     ("exchange.gb", 3.0),
     # 6 GB at 3.35 TB/s over 4 ms
@@ -443,6 +549,8 @@ COUNTS = {"gather.bytes": 2 * 6 * GB, "exchange.bytes": 2 * 3 * GB,
      100 * 9.6 * GB / 3.35e12 / 4.5e-3),
     # 6.1 GB at 3.35 TB/s over 1.5 ms
     ("exchange.group_roofline", 100 * 6.1 * GB / 3.35e12 / 1.5e-3),
+    # 9.8 GB at 3.35 TB/s over 2.5 ms
+    ("als.gram_roofline", 100 * 9.8 * GB / 3.35e12 / 2.5e-3),
 ])
 def test_a_reader_on_a_synthetic_summary(metric, want, monkeypatch):
     reader = harness.load_readers()[metric]
