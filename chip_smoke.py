@@ -97,8 +97,11 @@ printing one JSON line; any failure raises and the exit code is not 0:
    launches counted per shape, the kernel held to its plain
    version at every block shape the path gave it, its result held to its
    numpy oracle, then warm steps timed and one traced: ALS half-step over
-   100M ratings, PageRank over 2**27 edges, the shuffle join, the TPC-DS
-   star;
+   100M ratings (the normal equations kernel's launches held to the
+   path's solves, one a shard a half-step; then the kernel checked
+   against its plain version and float64 and timed at a block of the ALS
+   cell, rank 10, each side), PageRank over 2**27 edges, the shuffle
+   join, the TPC-DS star;
 9. the TPC-DS q95 and q64 plans (BASELINE.md config #4), the same way:
    q95 over SF10's 7,197,568 web_sales rows, q64 at the largest size its
    16-bit keys admit, each per-shard partial held to a numpy oracle;
@@ -269,6 +272,7 @@ from sparkrdma_tpu_torch.ops import (
     _build,
     dest_partition,
     hash_lookup,
+    normal_equations,
     ragged_exchange,
     ring_exchange,
     row_gather,
@@ -360,7 +364,7 @@ PATH_RING_SHAPES = ((8, 8, 131072, 2), (8, 8, 262144, 2), (8, 8, 14746, 2),
 # csrc/ sources: the ring and ragged kernels are in one, the row gather
 # and the receive merge each in one of their own
 KERNELS = ("ring_exchange", "row_gather", "run_merge", "dest_partition",
-           "hash_lookup")
+           "hash_lookup", "normal_equations")
 RING = "ring_all_to_all"
 NATIVE = "ragged_all_to_all"
 GATHER = "row_gather"
@@ -448,6 +452,15 @@ ALS_CFG = als.ALSConfig(num_users=480_189, num_items=17_770, rank=8,
 ALS_PER_DEVICE = 100_000_000 // SHARDS
 ALS_QUOTA = ALS_PER_DEVICE // SHARDS
 ALS_SAMPLED_ITEMS = 32
+# a shard of the ALS cell (benchmarks/configs/als-netflix-mllib.json:
+# 100,480,507 ratings over MLlib's 10 blocks at rank 10), for the normal
+# equations kernel: each side's entities and bounded Zipf exponent, then
+# the other side's
+GRAM_ROWS = 10_048_051
+GRAM_RANK = 10
+GRAM_BLOCKS = 10
+GRAM_SIDES = {"items": (17_770, 0.437736, 480_189, 0.37467),
+              "users": (480_189, 0.37467, 17_770, 0.437736)}
 # BASELINE.md config #3, cut from 19 GB to 2**27 edges (1 GiB of edges)
 PAGERANK_CFG = pagerank.PageRankConfig(num_vertices=1 << 24,
                                        edges_per_device=1 << 24,
@@ -1850,11 +1863,106 @@ def _stable_grouping(rows: np.ndarray, dest: np.ndarray, n: int) -> list:
         for d in range(n)]
 
 
+def _zipf_draws(n: int, exponent: float, weights_of, gen) -> torch.Tensor:
+    """``GRAM_ROWS`` int64 draws from a bounded Zipf law over ``n`` ranks
+    restricted to the ranks ``weights_of`` keeps, as indices among them."""
+    weights = torch.arange(1, n + 1, dtype=torch.float64,
+                           device="cuda").pow_(-exponent)[weights_of]
+    cdf = torch.cumsum(weights, 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand(GRAM_ROWS, dtype=torch.float64, device="cuda",
+                   generator=gen)
+    return torch.searchsorted(cdf, u).clamp_(max=weights.numel() - 1)
+
+
+def _gram_inputs(side: str, seed: int):
+    """One block of the ALS cell's ``side`` made on the card: the block's
+    entities (every tenth of a seeded permutation of the ranks) drawn by
+    their Zipf law, the other side's ids by theirs, stars 1-5, unit
+    factors. Returns the normal equations' arguments and the entities."""
+    n, exponent, other_n, other_exponent = GRAM_SIDES[side]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mine = torch.randperm(n, device="cuda", generator=gen) % GRAM_BLOCKS == 0
+    key = _zipf_draws(n, exponent, mine, gen)
+    other = _zipf_draws(other_n, other_exponent, slice(None), gen)
+    rows = torch.stack([key.to(torch.int32), other.to(torch.int32),
+                        torch.randint(1, 6, (GRAM_ROWS,), device="cuda",
+                                      generator=gen).to(torch.float32)
+                        .view(torch.int32)], 1)
+    fixed = torch.randn((other_n, GRAM_RANK), device="cuda", generator=gen)
+    fixed /= torch.linalg.vector_norm(fixed, dim=1, keepdim=True)
+    entities = int(mine.sum())
+    n_pad = 1 << max(4, (entities - 1).bit_length())
+    return (rows[:, 0].to(torch.int64), rows[:, 1],
+            rows[:, 2].view(torch.float32), fixed, n_pad), entities
+
+
+def _gram_rel_err(sums, want) -> float:
+    """The largest over entities of the float32 sums' distance from the
+    float64 ones over the latter's norm (``ata`` and ``atr`` together)."""
+    got = torch.cat([sums[0].flatten(1), sums[1]], 1).to(torch.float64)
+    ref = torch.cat([want[0].flatten(1), want[1]], 1)
+    norm = torch.linalg.vector_norm(ref, dim=1)
+    dist = torch.linalg.vector_norm(got - ref, dim=1)
+    return float((dist / norm.clamp(min=1e-300)).max())
+
+
+def _gram_times() -> dict:
+    """The normal equations kernel at a block of the ALS cell, each side:
+    its counts equal to the plain version's and its sums' worst relative
+    error against float64 no larger than the plain version's; timed
+    against the plain version (the chunked ``index_add_``) and the bytes
+    ``als.gram_bytes`` counts (each row's factor, rating and entity id
+    read, each entity's sums written) at the card's memory rate."""
+    out = {}
+    for i, side in enumerate(GRAM_SIDES):
+        args, entities = _gram_inputs(side, 40 + i)
+        local_key, other, rating, fixed, n_pad = args
+        got = normal_equations.normal_equations(*args)
+        plain = normal_equations.normal_equations_plain(*args)
+        want = [torch.zeros((n_pad, GRAM_RANK, GRAM_RANK),
+                            dtype=torch.float64, device="cuda"),
+                torch.zeros((n_pad, GRAM_RANK), dtype=torch.float64,
+                            device="cuda")]
+        for lo in range(0, GRAM_ROWS, 1 << 20):
+            f = fixed.to(torch.float64)[other[lo:lo + (1 << 20)].long()]
+            key = local_key[lo:lo + (1 << 20)]
+            want[0].index_add_(0, key, f[:, :, None] * f[:, None, :])
+            want[1].index_add_(0, key, f * rating[lo:lo + (1 << 20),
+                                                  None].to(torch.float64))
+        if not torch.equal(got[2], plain[2]):
+            raise AssertionError(f"normal_equations' counts != plain at the "
+                                 f"{side} side")
+        err, plain_err = _gram_rel_err(got, want), _gram_rel_err(plain, want)
+        if err > plain_err:
+            raise AssertionError(f"normal_equations' worst relative error "
+                                 f"{err} past the plain version's "
+                                 f"{plain_err} at the {side} side")
+        del got, plain, want, f
+        moved = (GRAM_ROWS * (4 * GRAM_RANK + 8)
+                 + entities * 4 * (GRAM_RANK ** 2 + GRAM_RANK))
+        ms = cuda_ms(lambda: normal_equations.normal_equations(*args), 5, 5)
+        out[side] = {
+            "rows": GRAM_ROWS, "entities": entities, "n_pad": n_pad,
+            "rank": GRAM_RANK, "ms": ms,
+            "plain_ms": cuda_ms(
+                lambda: normal_equations.normal_equations_plain(*args), 3, 1),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "max_rel_err": err, "plain_max_rel_err": plain_err}
+        out[side]["roofline_share"] = out[side]["bound_ms"] / ms
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_als(mesh: VirtualMesh, table: dict) -> int:
     """ALS half-step (items from users) over 100M zipf-skewed ratings
     through the chunked exchange; the received rows held exactly to a
     numpy grouping, 32 sampled items' factors (the hottest included) to
-    float64 normal equations; warm calls timed, one traced."""
+    float64 normal equations; warm calls timed, one traced. The normal
+    equations kernel launches once for each ``solve_item_factors`` call,
+    one a shard a half-step; then it is checked and timed at a block of
+    the ALS cell (``_gram_times``)."""
     t0 = time.perf_counter()
     ratings = als.generate_ratings(ALS_CFG, SHARDS, ALS_PER_DEVICE, seed=0)
     rng = np.random.default_rng(1)
@@ -1863,8 +1971,20 @@ def phase_als(mesh: VirtualMesh, table: dict) -> int:
     generate_s = time.perf_counter() - t0
 
     def half_step(rows):
+        half_steps[0] += 1
         return als.als_half_step(mesh, ALS_CFG, rows, fixed, ALS_QUOTA)
 
+    # every CUDA solve with rows launches the normal equations once
+    half_steps, solves = [0], [0]
+    solve = als.solve_item_factors
+
+    def counted(rows, *args, **kwargs):
+        if rows.is_cuda and rows.shape[0]:
+            solves[0] += 1
+        return solve(rows, *args, **kwargs)
+
+    als.solve_item_factors = counted
+    gram_first = normal_equations.LAUNCHES
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     (factors, rounds), launches, shapes = _launches(
@@ -1897,6 +2017,13 @@ def phase_als(mesh: VirtualMesh, table: dict) -> int:
     resident_ms = _host_times_ms(lambda: half_step(ratings_d), 2)
     trace = _trace(lambda: half_step(ratings_d),
                    ("als.", "chunked.", "exchange."))
+    als.solve_item_factors = solve
+    gram_launches = normal_equations.LAUNCHES - gram_first
+    if not gram_launches == solves[0] == SHARDS * half_steps[0]:
+        raise AssertionError(
+            f"normal_equations launched {gram_launches} times over "
+            f"{half_steps[0]} ALS half-steps of {SHARDS} shards; "
+            f"{solves[0]} CUDA solves had rows")
     emit({"phase": "als", "ratings": int(len(ratings)),
           "per_device": ALS_PER_DEVICE, "num_users": ALS_CFG.num_users,
           "num_items": ALS_CFG.num_items, "rank": ALS_CFG.rank,
@@ -1916,7 +2043,9 @@ def phase_als(mesh: VirtualMesh, table: dict) -> int:
           # per item, the error against the size of its factor vector
           "factor_max_rel_err": float(
               (np.abs(got - oracle).max(axis=1)
-               / np.abs(oracle).max(axis=1)).max())})
+               / np.abs(oracle).max(axis=1)).max()),
+          "normal_equations_launches": gram_launches,
+          "normal_equations": _gram_times()})
     emit({"phase": "als_profile", **trace})
     return launches
 

@@ -16,20 +16,22 @@ One half-step (solving item factors from fixed user factors):
    stable order as the JAX package's host-side grouping, and the chunked
    exchange moves them there (span ``als.group``, then ``chunked.*``);
 3. per entity: the normal equations ``A^T A + reg*I`` and ``A^T r`` over
-   its ratings' other-side factors, summed by ``index_add_`` (span
-   ``als.gram``), then one batched ``torch.linalg.solve`` (span
+   its ratings' other-side factors (span ``als.gram``: on the card the
+   hand-written kernel of ``ops/normal_equations.py``, on the CPU chunked
+   ``index_add_`` sums), then one batched ``torch.linalg.solve`` (span
    ``als.solve``, around ``als.gram``). The JAX package solves with
    ``jnp.linalg.solve`` outside any Pallas kernel, so the library solve
    is the port of it. With ``ALSConfig.weighted_reg`` the diagonal is
    MLlib's ``reg * n_e`` (ALS-WR, Zhou et al. 2008), ``n_e`` entity e's
-   ratings, counted on the device from the rows it received.
+   ratings, counted on the device by the sums.
 
 Every result stays on the device until the factors are returned. While
 profiled, a half-step counts ``als.rounds`` (its chunked rounds),
 ``als.ratings`` (rows summed into normal equations), ``als.entities``
 (entities solved) and ``als.gram_bytes`` (the sums' bytes from shapes:
 each row's other-side factor, rating and entity id read, each entity's
-``k*k + k`` float32 sums written).
+``k*k + k`` float32 sums written); the sums count ``als.gram_split``
+(entities whose rows take more than one of the kernel's pieces).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.ops.normal_equations import normal_equations
 from sparkrdma_tpu_torch.parallel.exchange import (
     chunked_exchange_resident,
     group_by_destination,
@@ -47,8 +50,6 @@ from sparkrdma_tpu_torch.parallel.exchange import (
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 from sparkrdma_tpu_torch.utils import trace as trace_mod
 from sparkrdma_tpu_torch.utils.u32 import rows_from_numpy, to_u64
-
-_SOLVE_CHUNK = 1 << 20
 
 
 @dataclass(frozen=True)
@@ -97,49 +98,38 @@ def solve_item_factors(ratings_for_device: torch.Tensor,
     factors). Returns float32 ``[len(items_on_device), k]``.
 
     As in the JAX package the entity count is bucketed to a power of two
-    (``n_pad``; padded entities see ``reg*I x = 0``, weighted or not) and
-    the rows are summed in chunks of at most 2**20, which bounds the
-    ``[CH, k, k]`` outer-product transient. The JAX chunks are padded to
-    one static shape with rows aimed past ``n_pad`` that ``mode="drop"``
-    discards; eager PyTorch needs no static shape, so the last chunk is
-    short and no pad row exists.
+    (``n_pad``; padded entities have no row and see ``reg*I x = 0``,
+    weighted or not).
 
-    Each chunk sums into a zeroed buffer that is then added to the
-    running total. Summing every chunk straight into the running float32
-    total stagnates once the total dwarfs its terms: a hot item with 25M
-    ratings of rank-8 factors lost 5.8% of a diagonal entry that way in a
-    float32 simulation, and 0.05% with per-chunk partials. On the card
-    ``index_add_`` sums with atomics, in no fixed order. The chunks'
-    gathers, outer products and sums are the ``als.gram`` span.
+    The sums are ``ops/normal_equations.py``'s (span ``als.gram``): on
+    the card its kernel orders the rows by entity and sums each entity's
+    rows in registers, a piece of at most ``PIECE_ROWS`` rows at a time,
+    with no float atomic and no running total longer than a piece; on
+    the CPU the chunked ``index_add_`` sums, each chunk summed into a
+    zeroed buffer before the running total (summing every chunk straight
+    into the running float32 total stagnates once the total dwarfs its
+    terms: a hot item with 25M ratings of rank-8 factors lost 5.8% of a
+    diagonal entry that way in a float32 simulation, and 0.05% with
+    per-chunk partials).
 
     With ``cfg.weighted_reg`` entity e's diagonal is ``reg * n_e``, its
-    rows here counted on the device, as MLlib's ``computeFactors``
-    regularises."""
+    rows here as the sums counted them on the device, as MLlib's
+    ``computeFactors`` regularises."""
     k = cfg.rank
     dev = ratings_for_device.device
     keys = to_u64(ratings_for_device[:, key_col])
     local_key = torch.searchsorted(items_on_device.to(torch.int64), keys)
-    others = to_u64(ratings_for_device[:, 1 - key_col])
-    vals = ratings_for_device[:, 2].view(torch.float32)
     n_keys = items_on_device.numel()
     n_pad = 1 << max(4, (n_keys - 1).bit_length())
-    ata = torch.zeros((n_pad, k, k), dtype=torch.float32, device=dev)
-    atr = torch.zeros((n_pad, k), dtype=torch.float32, device=dev)
-    rows = ratings_for_device.shape[0]
-    ch = min(_SOLVE_CHUNK, 1 << max(10, (max(rows, 1) - 1).bit_length()))
     with trace_mod.span("als.gram"):
-        for lo in range(0, rows, ch):
-            u = user_factors.index_select(0, others[lo:lo + ch])
-            li = local_key[lo:lo + ch]
-            r = vals[lo:lo + ch]
-            ata += torch.zeros_like(ata).index_add_(
-                0, li, u[:, :, None] * u[:, None, :])
-            atr += torch.zeros_like(atr).index_add_(0, li, u * r[:, None])
+        ata, atr, n_e = normal_equations(
+            local_key, ratings_for_device[:, 1 - key_col],
+            ratings_for_device[:, 2].view(torch.float32), user_factors,
+            n_pad)
     reg = cfg.reg
     if cfg.weighted_reg:
         # a padded entity has no row and keeps reg * I
-        n_e = torch.bincount(local_key, minlength=n_pad).clamp_(min=1)
-        reg = cfg.reg * n_e.to(torch.float32)[:, None, None]
+        reg = cfg.reg * n_e.clamp(min=1).to(torch.float32)[:, None, None]
     ata = ata + reg * torch.eye(k, dtype=torch.float32, device=dev)[None]
     return torch.linalg.solve(ata, atr[..., None])[..., 0][:n_keys]
 

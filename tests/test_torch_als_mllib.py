@@ -9,8 +9,9 @@ form of MLlib's equation, entity by entity. With the weighting off the
 solve is the parent's arithmetic to the byte; the JAX parity tests of
 ``test_torch_models.py`` hold it to the JAX package.
 
-Tolerance: the port sums in float32 (by ``index_add_``, in no fixed
-order on a card) and solves in float32; the references in float64. At
+Tolerance: the port sums in float32 (by ``index_add_`` on the CPU, by
+the normal equations kernel in no fixed order on a card) and solves in
+float32; the references in float64. At
 these sizes an entity sums at most a few hundred terms, so ``rtol=1e-4``
 relative to each factor's norm leaves some 20x room over the readings.
 """
@@ -25,6 +26,7 @@ import torch
 
 from benchmarks.reference import als as reference
 from sparkrdma_tpu_torch.models import als
+from sparkrdma_tpu_torch.ops import normal_equations
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh
 from sparkrdma_tpu_torch.utils.u32 import to_u64
 
@@ -132,7 +134,7 @@ def _parent_solve(rows, fixed, cfg, keys, key_col):
     n_pad = 1 << max(4, (keys.numel() - 1).bit_length())
     ata = torch.zeros((n_pad, k, k))
     atr = torch.zeros((n_pad, k))
-    ch = min(als._SOLVE_CHUNK,
+    ch = min(normal_equations.CHUNK_ROWS,
              1 << max(10, (max(rows.shape[0], 1) - 1).bit_length()))
     for lo in range(0, rows.shape[0], ch):
         u = fixed.index_select(0, others[lo:lo + ch])
@@ -149,7 +151,7 @@ def _parent_solve(rows, fixed, cfg, keys, key_col):
 def test_unweighted_solve_is_the_parents_to_the_byte(key_col, monkeypatch):
     """With ``weighted_reg`` off, 3000 rows in chunks of 1024: the same
     float32 bytes as the parent's arithmetic."""
-    monkeypatch.setattr(als, "_SOLVE_CHUNK", 1024)
+    monkeypatch.setattr(normal_equations, "CHUNK_ROWS", 1024)
     rows = _ratings(1, 3003, seed=7)[0, :3000]
     fixed = torch.from_numpy(_unit_factors(USERS if key_col == 0 else ITEMS,
                                            seed=4))

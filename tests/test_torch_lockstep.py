@@ -50,6 +50,7 @@ PORTED = (
     "ops/aggregate.py",
     "ops/dest_partition.py",
     "ops/hash_lookup.py",
+    "ops/normal_equations.py",
     "ops/partition.py",
     "ops/ragged_exchange.py",
     "ops/ring_exchange.py",

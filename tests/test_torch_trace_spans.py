@@ -34,6 +34,7 @@ from benchmarks.reference import als as als_reference  # noqa: E402
 from benchmarks.jobs import q64 as q64_job  # noqa: E402
 from benchmarks.jobs import q95 as q95_job  # noqa: E402
 from benchmarks.jobs import terasort as terasort_job  # noqa: E402
+from sparkrdma_tpu_torch.ops.normal_equations import PIECE_ROWS  # noqa: E402
 from sparkrdma_tpu_torch.parallel import device_plane  # noqa: E402
 from sparkrdma_tpu_torch.parallel import exchange  # noqa: E402
 from sparkrdma_tpu_torch.parallel.mesh import VirtualMesh, take_rows  # noqa: E402
@@ -448,9 +449,10 @@ def test_the_gram_nests_in_the_solve_on_its_own_work(monkeypatch):
 @pytest.mark.parametrize("impl", ["native", "gather"])
 def test_the_als_counters_count_a_job(impl, monkeypatch):
     """Under a profiler one job counts its chunked rounds, every live
-    rating once a half-step, every rated entity once, and the sums' bytes
-    of those shapes (``gram_bytes``); a job run with no profiler adds
-    nothing."""
+    rating once a half-step, every rated entity once, the sums' bytes
+    of those shapes (``gram_bytes``) and the entities whose rows take more
+    than one piece of the sums (none at this size); a job run with no
+    profiler adds nothing."""
     cfg, run = _job("als", impl, monkeypatch)
     rows = als_job.make_inputs(cfg, 11, "cpu")["ratings"]
     live = rows.reshape(-1, 3)[:cfg["ratings"]]
@@ -465,10 +467,13 @@ def test_the_als_counters_count_a_job(impl, monkeypatch):
     with _profile():
         run()
     got = trace.counts()
+    # entities whose rows take more than one of the kernel's pieces
+    split = sum(int((torch.bincount(live[:, col]) > PIECE_ROWS).sum())
+                for col in (0, 1))
     assert {k: v for k, v in got.items() if k.startswith("als.")} == {
         "als.rounds": rounds, "als.ratings": 2 * cfg["ratings"],
         "als.entities": cfg["items"] + cfg["users"],
-        "als.gram_bytes": als_job.gram_bytes(cfg)}
+        "als.gram_bytes": als_job.gram_bytes(cfg), "als.gram_split": split}
     assert rounds >= 4
     run()                                      # no profiler: not counted
     assert trace.counts() == got
